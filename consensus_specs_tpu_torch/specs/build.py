@@ -1,0 +1,89 @@
+"""Spec builder: fork-delta sources → flat (fork, preset) modules.
+
+The equivalent of the reference's markdown→Python compiler
+(setup.py:168-264,580-678 and the SpecBuilder inheritance chain :328-573).
+Forks are deltas: building fork F executes the sources of every fork up to
+F *into one namespace*, so later definitions override earlier ones and all
+references late-bind to the final namespace — the same semantics the
+reference gets by emitting one flat module per (fork, preset).
+
+This package carries phase0 only; later forks come with later slices.
+Built modules register as ``consensus_specs_tpu_torch.specs.<fork>_<preset>``
+so they never collide in ``sys.modules`` with the JAX package's modules of
+the same fork and preset.
+"""
+from __future__ import annotations
+
+import sys
+import types
+from pathlib import Path
+from typing import Any, Dict, Optional, Tuple
+
+from ..config import config_for, preset_for
+
+FORK_ORDER = ["phase0"]
+
+_SOURCE_DIR = Path(__file__).resolve().parent
+_cache: Dict[Tuple, types.ModuleType] = {}
+_code_cache: Dict[str, Any] = {}
+
+
+def _fork_chain(fork: str):
+    if fork not in FORK_ORDER:
+        raise ValueError(f"unknown fork {fork!r} (have {FORK_ORDER})")
+    return FORK_ORDER[: FORK_ORDER.index(fork) + 1]
+
+
+def _compiled(fork: str):
+    code = _code_cache.get(fork)
+    if code is None:
+        path = _SOURCE_DIR / f"{fork}.py"
+        # dont_inherit: this file's own __future__ imports (e.g. PEP 563
+        # string annotations) must NOT leak into spec sources — SSZ Container
+        # field collection needs real type objects in __annotations__.
+        code = compile(path.read_text(), str(path), "exec", dont_inherit=True)
+        _code_cache[fork] = code
+    return code
+
+
+def build_spec(
+    fork: str,
+    preset_name: str,
+    config_overrides: Optional[Dict[str, Any]] = None,
+) -> types.ModuleType:
+    """Build (or fetch cached) the flat spec module for (fork, preset).
+
+    With ``config_overrides`` a fresh module is built whose ``config`` has
+    the overrides applied — the with_config_overrides mechanism
+    (ref: test/context.py:492-534) without re-importing files.
+    """
+    if config_overrides is None:
+        cache_key = (fork, preset_name)
+        suffix = ""
+    else:
+        # Value-keyed cache: identical overrides share one module.
+        items = tuple(sorted(config_overrides.items()))
+        cache_key = (fork, preset_name, items)
+        suffix = f"_o{abs(hash(items)):x}"
+    if cache_key in _cache:
+        return _cache[cache_key]
+
+    chain = _fork_chain(fork)
+    mod = types.ModuleType(f"consensus_specs_tpu_torch.specs.{fork}_{preset_name}{suffix}")
+    mod.__file__ = str(_SOURCE_DIR / f"{fork}.py")
+    ns = mod.__dict__
+    # dataclass/typing machinery resolves cls.__module__ through sys.modules
+    sys.modules[mod.__name__] = mod
+
+    ns.update(preset_for(preset_name, chain))
+    cfg = config_for(preset_name)
+    if config_overrides:
+        cfg.update(config_overrides)
+    ns["config"] = cfg
+    for f in chain:
+        exec(_compiled(f), ns)
+    ns["fork"] = fork
+    ns["preset_base"] = preset_name
+
+    _cache[cache_key] = mod
+    return mod

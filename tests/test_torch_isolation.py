@@ -1,0 +1,70 @@
+"""The port stands alone: no module of consensus_specs_tpu_torch imports
+JAX or the JAX package, importing it loads neither, and its entry points
+run on the CUDA card unless a caller asks for the CPU."""
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import consensus_specs_tpu_torch
+from consensus_specs_tpu_torch.ops import sha256 as tdev
+from consensus_specs_tpu_torch.ops import sha256_cuda
+
+PACKAGE = Path(consensus_specs_tpu_torch.__file__).parent
+FORBIDDEN = {"jax", "jaxlib", "consensus_specs_tpu"}
+
+
+def _imported_top_names(path: Path) -> set:
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names.update(alias.name.split(".")[0] for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            names.add(node.module.split(".")[0])
+    return names
+
+
+def test_no_module_imports_jax_or_the_jax_package():
+    sources = sorted(PACKAGE.rglob("*.py"))
+    assert len(sources) > 20
+    offenders = {str(p.relative_to(PACKAGE)): _imported_top_names(p) & FORBIDDEN for p in sources}
+    assert {k: v for k, v in offenders.items() if v} == {}
+
+
+def test_importing_the_port_loads_neither():
+    code = (
+        "import sys\n"
+        "import consensus_specs_tpu_torch, consensus_specs_tpu_torch.harness, consensus_specs_tpu_torch.interop\n"
+        "from consensus_specs_tpu_torch.ops import sha256, sha256_cuda, sha256_plain\n"
+        "from consensus_specs_tpu_torch.specs import build_spec\n"
+        "spec = build_spec('phase0', 'minimal')\n"
+        "assert spec.__name__ == 'consensus_specs_tpu_torch.specs.phase0_minimal', spec.__name__\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in {'jax', 'jaxlib', 'consensus_specs_tpu'})\n"
+        "assert not bad, bad\n"
+        "assert sha256_cuda._lib is None  # nothing built at import\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=PACKAGE.parent, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_entry_points_default_to_cuda(monkeypatch):
+    monkeypatch.setattr("torch.cuda.is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        consensus_specs_tpu_torch.resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tdev.use_device_hasher()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tdev.hash_many_device(b"\x00" * 64)
+    assert consensus_specs_tpu_torch.resolve_device("cpu").type == "cpu"
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    before = dict(sha256_cuda.launches)
+    for kernel in (sha256_cuda.sha256_blocks, sha256_cuda.sha256_raw_blocks):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            kernel(torch.zeros((1, 16), dtype=torch.int32))
+    assert sha256_cuda.launches == before
