@@ -3,24 +3,110 @@
 The port's own copy of what it needs from the JAX package's test framework
 (``test_framework/{genesis,block,attestations,state}.py``): a genesis
 state, the block of the next slot with every committee of the previous slot
-attesting in full, and that block with its ``state_root`` filled in.
+attesting, and that block with its ``state_root`` filled in; and a runner
+that applies a block with its signature checks deferred into one batched
+flush (the vector generator's ``--bls-defer`` pattern).
 
-Keys follow the test framework's convention, privkey(i) = i + 1. Deriving
-the public keys from them is pure-Python elliptic-curve work, which does
-not scale to a mainnet registry; ``synthetic_pubkeys=True`` draws them from
-a seeded ``torch.Generator`` instead. Such a state can only be driven with
-``bls.bls_active = False``.
+Keys follow the test framework's convention, privkey(i) = i + 1, so
+pubkey(i) = (i + 1) G1. ``pubkeys(n)`` derives them at registry scale by
+batched affine additions on the host (a few microseconds a key, where
+``SkToPk`` costs a scalar multiplication) and keeps them under
+``build/keys/``. ``synthetic_pubkeys=True`` draws random bytes instead, for
+states driven with ``bls.bls_active = False``.
+
+Signed blocks (``sign=True``) carry real signatures: the proposer's and
+the randao reveal, and each attestation signed once by the sum of its
+members' secret keys mod r, which gives the same bytes as ``Aggregate`` of
+the members' signatures (a signature is linear in the key) at the cost of
+one ``Sign``.
 """
 from __future__ import annotations
+
+import os
+from pathlib import Path
 
 import torch
 
 from .crypto import bls
+from .crypto.bls import ciphersuite
+from .crypto.bls.curve import G1_X, G1_Y
+from .crypto.bls.fields import P, R
+
+KEY_DIR = Path(__file__).resolve().parents[1] / "build" / "keys"
+_TABLE = 1024  # keys per run of the batched additions
+
+
+def _affine_add(p1, p2):
+    """Affine sum of two non-opposite points (host ints)."""
+    (x1, y1), (x2, y2) = p1, p2
+    if p1 == p2:
+        lam = 3 * x1 * x1 * pow(2 * y1, -1, P) % P
+    else:
+        lam = (y2 - y1) * pow(x2 - x1, -1, P) % P
+    x3 = (lam * lam - x1 - x2) % P
+    return x3, (lam * (x1 - x3) - y1) % P
+
+
+def _compress(x: int, y: int) -> bytes:
+    out = bytearray(x.to_bytes(48, "big"))
+    out[0] |= 0x80 | (0x20 if y > (P - 1) // 2 else 0)
+    return bytes(out)
+
+
+def _derive_pubkeys(n: int) -> bytes:
+    """(i + 1) G1 for i < n, compressed and concatenated. With T = 1024,
+    (k T + j) G = (k T) G + j G: the j G and k T G tables are successive
+    additions, and every other key is one addition whose inversion is
+    shared across the batch (Montgomery's trick)."""
+    g = (int(G1_X), int(G1_Y))
+    small = [g]  # j G for j = 1..T
+    for _ in range(_TABLE - 1):
+        small.append(_affine_add(small[-1], g))
+    big = [None, small[-1]]  # k T G
+    for _ in range(2, n // _TABLE + 1):
+        big.append(_affine_add(big[-1], small[-1]))
+    pts = list(small[: min(n, _TABLE)])
+    pairs = [(big[(i + 1) // _TABLE], small[(i + 1) % _TABLE - 1]) for i in range(_TABLE, n)]
+    # a key index (i + 1) that is a multiple of T is exactly k T G
+    exact = [(i + 1) % _TABLE == 0 for i in range(_TABLE, n)]
+    dens = [1 if e else (q[0] - b[0]) % P for (b, q), e in zip(pairs, exact)]
+    prefix, acc = [], 1
+    for d in dens:
+        prefix.append(acc)
+        acc = acc * d % P
+    inv = pow(acc, -1, P)
+    invs = [0] * len(dens)
+    for i in range(len(dens) - 1, -1, -1):
+        invs[i] = inv * prefix[i] % P
+        inv = inv * dens[i] % P
+    for (b, q), e, dinv, i in zip(pairs, exact, invs, range(_TABLE, n)):
+        if e:
+            pts.append(big[(i + 1) // _TABLE])
+            continue
+        lam = (q[1] - b[1]) * dinv % P
+        x3 = (lam * lam - b[0] - q[0]) % P
+        pts.append((x3, (lam * (b[0] - x3) - b[1]) % P))
+    return b"".join(_compress(x, y) for x, y in pts)
+
+
+def pubkeys(n: int) -> list:
+    """The compressed pubkeys of privkeys 1..n, derived once and kept
+    under ``build/keys/``."""
+    path = KEY_DIR / f"pubkeys_{n}.bin"
+    if path.exists() and path.stat().st_size == 48 * n:
+        raw = path.read_bytes()
+    else:
+        raw = _derive_pubkeys(n)
+        KEY_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")  # concurrent writers each rename a whole file
+        tmp.write_bytes(raw)
+        tmp.replace(path)
+    return [raw[48 * i : 48 * i + 48] for i in range(n)]
 
 
 def _pubkeys(n: int, synthetic: bool, seed: int) -> list:
     if not synthetic:
-        return [bls.SkToPk(i + 1) for i in range(n)]
+        return pubkeys(n)
     g = torch.Generator().manual_seed(seed)
     raw = torch.randint(0, 256, (n, 48), dtype=torch.uint8, generator=g).numpy().tobytes()
     return [raw[48 * i : 48 * i + 48] for i in range(n)]
@@ -69,9 +155,11 @@ def genesis(spec, n_validators: int, synthetic_pubkeys: bool = False, seed: int 
     return state
 
 
-def attestations_for_slot(spec, state, slot: int) -> list:
-    """Unsigned attestations of every committee of ``slot``, every member
-    attesting; ``state`` is past ``slot`` (ref: attestations.py:88-230)."""
+def attestations_for_slot(spec, state, slot: int, split: bool = False, sign: bool = False) -> list:
+    """Attestations of every committee of ``slot``, every member attesting;
+    ``state`` is past ``slot`` (ref: attestations.py:88-230). ``split``
+    makes two aggregates of each committee, of its disjoint halves;
+    ``sign`` signs each with the sum of its members' keys."""
     assert state.slot > slot
     epoch = spec.compute_epoch_at_slot(slot)
     block_root = spec.get_block_root_at_slot(state, slot)
@@ -92,16 +180,28 @@ def attestations_for_slot(spec, state, slot: int) -> list:
             source=spec.Checkpoint(epoch=source.epoch, root=source.root),
             target=spec.Checkpoint(epoch=epoch, root=target_root),
         )
-        bits = spec.Bitlist[spec.MAX_VALIDATORS_PER_COMMITTEE]([1] * len(committee))
-        out.append(spec.Attestation(aggregation_bits=bits, data=data))
+        n = len(committee)
+        halves = [(0, n // 2), (n // 2, n)] if split and n > 1 else [(0, n)]
+        root = spec.compute_signing_root(data, spec.get_domain(state, spec.DOMAIN_BEACON_ATTESTER, epoch)) \
+            if sign else None
+        for lo, hi in halves:
+            bits = spec.Bitlist[spec.MAX_VALIDATORS_PER_COMMITTEE]([lo <= i < hi for i in range(n)])
+            att = spec.Attestation(aggregation_bits=bits, data=data)
+            if sign:
+                att.signature = ciphersuite.Sign(sum(int(committee[i]) + 1 for i in range(lo, hi)) % R, root)
+            out.append(att)
     return out
 
 
-def next_block(spec, state, attest: bool = True):
+def next_block(spec, state, attest: bool = True, split: bool = False, sign: bool = False):
     """Advance ``state`` to the next slot and apply a block there that
-    carries the previous slot's attestations (up to ``MAX_ATTESTATIONS``).
-    Returns the ``SignedBeaconBlock``, ``state_root`` filled in; ``state``
-    ends as its post-state. Signatures are those of privkey(i) = i + 1."""
+    carries the previous slot's attestations (up to ``MAX_ATTESTATIONS``;
+    ``split``: two per committee). Returns the ``SignedBeaconBlock``,
+    ``state_root`` filled in; ``state`` ends as its post-state.
+
+    With ``sign`` every signature is real (privkey(i) = i + 1), made with
+    the host ciphersuite whatever ``bls.bls_active`` says; otherwise the
+    signatures come from ``bls.Sign``, zeros while BLS is off."""
     slot = state.slot + 1
     spec.process_slots(state, slot)
     proposer = spec.get_beacon_proposer_index(state)
@@ -111,10 +211,82 @@ def next_block(spec, state, attest: bool = True):
         parent_root=spec.hash_tree_root(state.latest_block_header),
     )
     block.body.eth1_data.deposit_count = state.eth1_deposit_index
-    block.body.randao_reveal = spec.get_epoch_signature(state, block, proposer + 1)
+    epoch = spec.compute_epoch_at_slot(slot)
+    if sign:
+        domain = spec.get_domain(state, spec.DOMAIN_RANDAO, epoch)
+        block.body.randao_reveal = ciphersuite.Sign(proposer + 1, spec.compute_signing_root(spec.uint64(epoch), domain))
+    else:
+        block.body.randao_reveal = spec.get_epoch_signature(state, block, proposer + 1)
     if attest:
-        for att in attestations_for_slot(spec, state, slot - 1)[: spec.MAX_ATTESTATIONS]:
+        for att in attestations_for_slot(spec, state, slot - 1, split, sign)[: spec.MAX_ATTESTATIONS]:
             block.body.attestations.append(att)
-    spec.process_block(state, block)
+    with _checks_off():
+        spec.process_block(state, block)
     block.state_root = spec.hash_tree_root(state)
+    if sign:
+        return sign_block(spec, state, block)
     return spec.SignedBeaconBlock(message=block, signature=spec.get_block_signature(state, block, proposer + 1))
+
+
+def sign_block(spec, state, block):
+    """The block with its proposer's real signature; ``state`` is at the
+    block's epoch."""
+    domain = spec.get_domain(state, spec.DOMAIN_BEACON_PROPOSER, spec.compute_epoch_at_slot(block.slot))
+    signature = ciphersuite.Sign(int(block.proposer_index) + 1, spec.compute_signing_root(block, domain))
+    return spec.SignedBeaconBlock(message=block, signature=signature)
+
+
+def tampered_copy(spec, post_state, signed_block, index: int, message: bytes = b"\x42" * 32):
+    """A copy of a signed block whose attestation ``index`` is signed by
+    the same keys over another ``message``, with its ``state_root`` and
+    proposer signature made anew: of its signature checks exactly that
+    attestation's fails. ``post_state`` is the block's post-state; the
+    copy's differs from it only in the block header's body root."""
+    block = signed_block.message.copy()
+    att = block.body.attestations[index]
+    members = spec.get_attesting_indices(post_state, att.data, att.aggregation_bits)
+    att.signature = ciphersuite.Sign(sum(int(i) + 1 for i in members) % R, message)
+    header = post_state.latest_block_header
+    body_root = header.body_root
+    header.body_root = spec.hash_tree_root(block.body)
+    block.state_root = spec.hash_tree_root(post_state)
+    header.body_root = body_root
+    assert spec.hash_tree_root(post_state) == signed_block.message.state_root
+    return sign_block(spec, post_state, block)
+
+
+class _checks_off:
+    """Build blocks without verifying their signatures (the caller signed
+    them): ``bls.bls_active`` off for the duration."""
+
+    def __enter__(self):
+        self.prev, bls.bls_active = bls.bls_active, False
+
+    def __exit__(self, *exc):
+        bls.bls_active = self.prev
+
+
+def apply_block_deferred(spec, state, signed_block, pre_state=None, verifier=None) -> "bls.DeferredVerifier":
+    """``state_transition`` with every signature check deferred, then ONE
+    flush through the active BLS backend (of ``verifier``, when given: the
+    checks an earlier flush of it resolved are not sent again). Returns
+    the verifier when every check of this block holds; ``state`` is then
+    the post-state.
+
+    When a check fails, the block is invalid and this raises: with
+    ``pre_state`` (a copy of the state before the block) the transition
+    is replayed there with the true answers, so that the spec itself
+    raises where the failing check sits; without it, AssertionError.
+    ``state`` is left part-way either way."""
+    verifier = verifier if verifier is not None else bls.DeferredVerifier()
+    start = verifier.mark()
+    with bls.deferring(verifier):
+        spec.state_transition(state, signed_block, validate_result=True)
+    verifier.flush()
+    if verifier.all_true(start, verifier.mark()):
+        return verifier
+    if pre_state is not None:
+        with bls.replaying(verifier.table()):
+            spec.state_transition(pre_state, signed_block, validate_result=True)
+        raise AssertionError("a signature check failed, but the replayed transition accepted the block")
+    raise AssertionError(f"{verifier.results[start:].count(False)} signature check(s) failed")

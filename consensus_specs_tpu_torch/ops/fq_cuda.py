@@ -1,0 +1,117 @@
+"""Bind and launch the hand-written base-field kernels (csrc/fq.cu): K3
+``fq_mul`` and K4 ``fq_addsub``.
+
+The source (with its device header ``csrc/fq.cuh``) is built at first
+launch by ``cuda_build``; nothing is built when the module is imported.
+
+Each wrapper takes CUDA int32 tensors of canonical limbs ``(..., 32)``,
+broadcasts them, launches on PyTorch's current stream, raises if the
+launch is refused, and counts the launch in ``launches``. An operand that is one element for the whole batch (a
+curve or tower constant) is read with stride 0, not materialised. There is
+no fallback: a build or launch failure raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import threading
+from pathlib import Path
+
+import torch
+
+from . import cuda_build
+
+N_LIMBS = 32
+KERNELS = ("fq_mul", "fq_addsub")
+launches = dict.fromkeys(KERNELS, 0)
+
+_lib = None
+_lock = threading.Lock()
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+
+
+def reset_counters() -> None:
+    for k in KERNELS:
+        launches[k] = 0
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile csrc/fq.cu unless it is built already; returns the library."""
+    return cuda_build.build("fq.cu", ("fq.cuh",), verbose=verbose)
+
+
+def _load():
+    global _lib
+    with _lock:
+        if _lib is None:
+            _lib = cuda_build.load("fq.cu", ("fq.cuh",), {
+                "fq_mul_launch": [_P, _I64, _P, _I64, _P, _I64, _P],
+                "fq_addsub_launch": [_P, _I64, _P, _I64, _P, _I64, ctypes.c_int, _P],
+            }, "fq_error_string")
+    return _lib
+
+
+def _broadcast_shape(a: torch.Size, b: torch.Size) -> tuple:
+    """numpy broadcasting of two shapes (torch.broadcast_shapes costs about
+    a hundred microseconds a call, more than a launch)."""
+    if a == b:
+        return tuple(a)
+    n = max(len(a), len(b))
+    a, b = (1,) * (n - len(a)) + tuple(a), (1,) * (n - len(b)) + tuple(b)
+    out = []
+    for x, y in zip(a, b):
+        if x != y and 1 not in (x, y):
+            raise ValueError(f"shapes {a} and {b} do not broadcast")
+        out.append(y if x == 1 else x)
+    return tuple(out)
+
+
+def _operand(name: str, x: torch.Tensor, shape: tuple) -> tuple:
+    """(tensor, stride in int32 elements) as the kernel reads it."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got one on {x.device}")
+    if x.dtype != torch.int32 or x.dim() == 0 or x.shape[-1] != N_LIMBS:
+        raise ValueError(f"{name}: expected int32 (..., {N_LIMBS}), got {x.dtype} {tuple(x.shape)}")
+    if x.numel() == N_LIMBS:
+        x, stride = x.reshape(N_LIMBS), 0
+    else:
+        x, stride = x.expand(shape).contiguous(), N_LIMBS
+    if x.data_ptr() % 16:
+        x = x.clone()
+    return x, stride
+
+
+def _launch(name: str, a: torch.Tensor, b: torch.Tensor, *extra) -> torch.Tensor:
+    shape = _broadcast_shape(a.shape, b.shape)
+    (x, xs), (y, ys) = _operand(name, a, shape), _operand(name, b, shape)
+    if x.device != y.device:
+        raise ValueError(f"{name}: operands on {x.device} and {y.device}")
+    out = torch.empty(shape, dtype=torch.int32, device=x.device)
+    n = out.numel() // N_LIMBS
+    if n == 0:
+        return out
+    lib = _load()
+    fn = getattr(lib, f"{name}_launch")
+    if x.device.index == torch.cuda.current_device():
+        rc = fn(x.data_ptr(), xs, y.data_ptr(), ys, out.data_ptr(), n, *extra,
+                torch.cuda.current_stream(x.device).cuda_stream)
+    else:  # the launch goes to the runtime's current device: switch to the operands'
+        with torch.cuda.device(x.device):
+            rc = fn(x.data_ptr(), xs, y.data_ptr(), ys, out.data_ptr(), n, *extra,
+                    torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: {lib.fq_error_string(rc).decode()}")
+    launches[name] += 1
+    return out
+
+
+def fq_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """K3: the Montgomery product a b / 2^384 mod p of canonical limbs."""
+    return _launch("fq_mul", a, b)
+
+
+def fq_addsub(a: torch.Tensor, b: torch.Tensor, op: int) -> torch.Tensor:
+    """K4: (a + b), (a - b) or (-b) mod p for op 0, 1, 2 (``fq_plain.OP_*``)."""
+    if op not in (0, 1, 2):
+        raise ValueError(f"fq_addsub: unknown op {op}")
+    return _launch("fq_addsub", a, b, op)

@@ -1,10 +1,8 @@
-"""Build, bind and launch the hand-written SHA-256 kernels (csrc/sha256.cu).
+"""Bind and launch the hand-written SHA-256 kernels (csrc/sha256.cu).
 
-The source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface the first time a kernel is launched, and loaded
-with ctypes. Nothing is built when the module is imported. The library is
-kept under ``build/torch_ext/`` at the root of the checkout, named by the
-hash of its source, so an edited source is rebuilt.
+The source is built at first launch by ``cuda_build`` (nvcc for
+``sm_90a``, a plain C interface loaded with ctypes, kept under
+``build/torch_ext/``); nothing is built when the module is imported.
 
 Each wrapper takes CUDA tensors only, checks them, launches on PyTorch's
 current stream, raises if the launch is refused, and counts the launch in
@@ -14,18 +12,12 @@ build or launch failure raises.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
 import threading
 from pathlib import Path
 
 import torch
 
-_SOURCE = Path(__file__).resolve().parent / "csrc" / "sha256.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_ext"
-NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17", "-shared",
-              "-Xcompiler", "-fPIC"]
+from . import cuda_build
 
 KERNELS = ("sha256_blocks", "sha256_raw_blocks")
 launches = dict.fromkeys(KERNELS, 0)
@@ -41,45 +33,18 @@ def reset_counters() -> None:
         bytes_in[k] = 0
 
 
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME is None:
-        raise RuntimeError("no CUDA toolkit found (set CUDA_HOME): cannot build csrc/sha256.cu")
-    return os.path.join(CUDA_HOME, "bin", "nvcc")
-
-
 def build(verbose: bool = False) -> Path:
-    """Compile csrc/sha256.cu into ``build/torch_ext/`` unless a library of
-    the same source is already there. Returns the library's path."""
-    digest = hashlib.sha256(_SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libsha256_{digest}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-o", str(tmp), str(_SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    if verbose:
-        print(proc.stderr, end="")
-    os.replace(tmp, lib)
-    return lib
+    """Compile csrc/sha256.cu unless it is built already; returns the library."""
+    return cuda_build.build("sha256.cu", verbose=verbose)
 
 
 def _load():
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name in ("sha256_blocks_launch", "sha256_raw_blocks_launch"):
-                fn = getattr(lib, name)
-                fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]
-                fn.restype = ctypes.c_int
-            lib.sha256_error_string.argtypes = [ctypes.c_int]
-            lib.sha256_error_string.restype = ctypes.c_char_p
-            _lib = lib
+            args = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]
+            _lib = cuda_build.load("sha256.cu", (), {f"{k}_launch": args for k in KERNELS},
+                                   "sha256_error_string")
     return _lib
 
 

@@ -10,6 +10,9 @@ import pytest
 import torch
 
 import consensus_specs_tpu_torch
+from consensus_specs_tpu_torch import probe
+from consensus_specs_tpu_torch.crypto import bls
+from consensus_specs_tpu_torch.ops import bls_torch, fq_cuda, h2c_torch
 from consensus_specs_tpu_torch.ops import sha256 as tdev
 from consensus_specs_tpu_torch.ops import sha256_cuda
 
@@ -39,12 +42,18 @@ def test_importing_the_port_loads_neither():
         "import sys\n"
         "import consensus_specs_tpu_torch, consensus_specs_tpu_torch.harness, consensus_specs_tpu_torch.interop\n"
         "from consensus_specs_tpu_torch.ops import sha256, sha256_cuda, sha256_plain\n"
+        "from consensus_specs_tpu_torch.ops import fq, fq_cuda, fq_plain, tower, curve_torch, h2c_torch\n"
+        "from consensus_specs_tpu_torch.ops import pairing_torch, bls_torch\n"
+        "from consensus_specs_tpu_torch import probe, sched\n"
+        "from consensus_specs_tpu_torch.crypto import bls\n"
+        "bls.use_backend('torch', device='cpu')\n"
         "from consensus_specs_tpu_torch.specs import build_spec\n"
         "spec = build_spec('phase0', 'minimal')\n"
         "assert spec.__name__ == 'consensus_specs_tpu_torch.specs.phase0_minimal', spec.__name__\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in {'jax', 'jaxlib', 'consensus_specs_tpu'})\n"
         "assert not bad, bad\n"
         "assert sha256_cuda._lib is None  # nothing built at import\n"
+        "assert fq_cuda._lib is None and probe._lib is None\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=PACKAGE.parent, capture_output=True, text=True,
                           timeout=120)
@@ -59,6 +68,17 @@ def test_entry_points_default_to_cuda(monkeypatch):
         tdev.use_device_hasher()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tdev.hash_many_device(b"\x00" * 64)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        h2c_torch.hash_to_g2_batch([b""])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        probe.probe()
+    prev = bls_torch._device
+    try:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            bls.use_backend("torch")
+    finally:
+        bls.use_reference()
+        bls_torch._device = prev
     assert consensus_specs_tpu_torch.resolve_device("cpu").type == "cpu"
 
 
@@ -68,3 +88,13 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         with pytest.raises(ValueError, match="CUDA tensor"):
             kernel(torch.zeros((1, 16), dtype=torch.int32))
     assert sha256_cuda.launches == before
+    before = dict(fq_cuda.launches)
+    x = torch.zeros((2, 32), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fq_cuda.fq_mul(x, x)
+    for op in (0, 1, 2):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            fq_cuda.fq_addsub(x, x, op)
+    assert fq_cuda.launches == before
+    # the probe's wrapper takes its plain version for a CPU tensor, and counts no launch
+    assert torch.equal(probe.add_one(x), x + 1) and probe.launches["add_one"] == 0
