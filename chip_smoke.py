@@ -12,9 +12,12 @@ Phases, each raising on any mismatch:
    blocks, bit-exact against their plain PyTorch versions on the card and
    against hashlib on a sample; merkle_reduce / merkle_levels / item_roots
    over 2^20 chunks against loops of the plain version. K3 (fq_mul) and K4
-   (fq_addsub) on random canonical field elements at the BLS path's sizes,
-   bit-exact against their plain versions and against Python integers on
-   a sample. CUDA-event times beside each kernel's bound.
+   (fq_addsub, all three op codes) on random canonical field elements and
+   edge values at 4,608 and 16,384 elements: the main path's lane-group
+   kernels and the one-thread kernels kept for measurement, bit-exact
+   against their plain versions and against Python integers on a sample,
+   with a stride-0 operand in either position. After the bls phase the
+   same check runs again at every size a flush launched.
 3. state_root: a mainnet-preset phase0 BeaconState of ``--validators``
    validators with real keys (pubkey(i) = (i + 1) G1); hash_tree_root on
    the device hasher and on the host (hashlib) must agree, with >= 90% of
@@ -33,10 +36,17 @@ Phases, each raising on any mismatch:
    must be decided the same by the host oracle, and the post-state root
    must equal the host's at every slot. Each flush is timed from its call
    to its last result (checks/s); the first is traced under torch.profiler
-   for the card's busy share. Then a tampered block (one
+   for the card's busy share. Each flush must make the K3 + K4 launches the
+   one-thread design made (no call site changed); the launch-size histogram
+   of the first untraced flush is printed. Then a tampered block (one
    attestation signed over another message): the card must reject exactly
    that row, the host oracle must agree, and the transition must raise on
    replay.
+6. fq timing: the K3/K4 kernels (lane-group and one-thread) timed in
+   turns in one profiler window per size, at 4,608 and 16,384 elements and
+   at each kernel's two most frequent sizes of that histogram, beside the
+   bound and the launch floor (the probe's device time). The kernels line
+   gives each at its most frequent size.
 
 Prints the whole report as one ``[report]`` JSON line, then one JSON line
 of kernel records, the card's name and power limit, and last
@@ -79,7 +89,10 @@ PROBE_SOURCE = "consensus_specs_tpu_torch/ops/csrc/probe.cu"
 # compression; 24 byte permutes for the swaps.
 K2_INT_OPS = 64 * 14 + 48 * 10 + 8 + 24  # data block only: 1,408
 K1_INT_OPS = K2_INT_OPS + 64 * 14 + 8  # plus the constant padding block: 2,312
-# 32-bit integer instructions per field element, counted from csrc/fq.cuh.
+# 32-bit integer instructions per field element: the work of the algorithm,
+# counted once from the one-thread form in csrc/fq.cuh and kept whatever
+# kernel implements it (the lane-group kernels run more instructions in
+# all, for their exchanges), so every kernel's roofline reads the same work.
 # K3: the CIOS loop is 12 x 12 operand steps and 12 x 12 reduction steps,
 # each a 32 x 32 -> 64-bit multiply (2: low and high halves) and two 64-bit
 # adds (4), so 6 a step: 1,728; plus 12 m = t0 * n0' multiplies, the
@@ -93,6 +106,23 @@ K4_INT_OPS = 24 + 36 + 2 * 40 + 64
 FQ_BYTES = 3 * 4 * 32  # two (32,) int32 operands read, one written
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 INT32_LANES_PER_SM = 64  # Hopper SM: 64 INT32 results per clock
+# K3 + K4 launches of one flush of a 128-attestation mainnet block at 2^19
+# validators, as the one-thread kernels' run counted them: every call site
+# is the same, so the lane-group kernels must be launched as often
+FLUSH_LAUNCHES = 32419
+DEFAULT_VALIDATORS = 1 << 19
+
+P = fq.P_INT
+RINV = pow(1 << 384, -1, P)
+OPS = {  # K4's op code (None: K3) and the value in Python integers
+    "mul": (None, lambda x, y: x * y * RINV % P), "add": (0, lambda x, y: (x + y) % P),
+    "sub": (1, lambda x, y: (x - y) % P), "neg": (2, lambda x, y: (-y) % P),
+}
+_EDGE = [0, 1, 2, P - 1, P - 2, (P - 1) // 2, (1 << 380) - 1, 1 << 380, (1 << 371) - 1, int("FFF" * 31, 16)]
+# every pair of edge values (a - b with a < b among them), sums just below,
+# at and just above p, and carries and borrows through every lane of a group
+EDGE_PAIRS = [(x, y) for x in _EDGE for y in _EDGE] + [
+    (x, (P + d - x) % P) for x in (1, 5, P // 2, (1 << 380) - 1) for d in (-1, 0, 1)]
 
 
 def nvidia_smi(query: str) -> str:
@@ -128,22 +158,37 @@ def cuda_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, kernel: str, reps: int = 20) -> float:
-    """Mean device time of one launch of ``kernel`` (a substring of its
-    symbol) over the launches the profiler saw in ``reps`` calls of
-    ``fn``. A small kernel's CUDA-event time per call is the host's time
-    to enqueue it; this is the time the card spends in it."""
-    fn()
+def device_ms_turns(fns: dict, reps: int = 20, windows: int = 3) -> dict:
+    """Mean device time of one launch of each kernel in ``fns`` (a
+    substring of its symbol -> a call that launches it), the calls made in
+    turns in one profiler window: in order on even rounds, reversed on odd
+    ones. A small kernel's CUDA-event time per call is the host's time to
+    enqueue it; this is the time the card spends in it. CUPTI may drop
+    events at a buffer edge, or a whole window's: a window that saw fewer
+    than half of any kernel's launches is measured again, up to
+    ``windows`` times, and then the phase fails."""
+    for fn in fns.values():
+        fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if kernel in e.key and e.device_type == torch.autograd.DeviceType.CUDA]
-    count = sum(e.count for e in events)  # CUPTI may drop an event at a buffer edge
-    require(count >= reps // 2, f"the profiler saw {count} launches of {kernel} in {reps} calls")
-    return sum(e.self_device_time_total for e in events) / count / 1e3
+    order = list(fns)
+    for window in range(1, windows + 1):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for r in range(reps):
+                for k in order if r % 2 == 0 else order[::-1]:
+                    fns[k]()
+            torch.cuda.synchronize()
+        averages = prof.key_averages()
+        events = {k: [e for e in averages if k in e.key and e.device_type == torch.autograd.DeviceType.CUDA]
+                  for k in fns}
+        counts = {k: sum(e.count for e in ev) for k, ev in events.items()}
+        if min(counts.values()) >= reps // 2:
+            return {k: sum(e.self_device_time_total for e in ev) / counts[k] / 1e3 for k, ev in events.items()}
+        print(f"[profiler] window {window} of {windows} saw {counts} launches of {reps} calls each", flush=True)
+    raise AssertionError(f"the profiler saw too few launches in {windows} windows: {counts} of {reps} calls each")
+
+
+def device_ms(fn, kernel: str, reps: int = 20) -> float:
+    return device_ms_turns({kernel: fn}, reps)[kernel]
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -192,47 +237,102 @@ def phase_env(report: dict, card: "Card") -> None:
           f"bound {bound:.6f} {bound_by})", flush=True)
 
 
-def phase_fq_kernels(report: dict, card: "Card", seed: int) -> None:
-    """K3/K4 at the BLS path's sizes: 128 * 2 * 18 products (an Fq12
-    multiply of a block's 128 two-pair Miller loops) and 16,384 (one
-    pubkey decode of a block's attesters)."""
-    rng = np.random.default_rng(seed)
-    p = fq.P_INT
+def field_pairs(n: int, rng, edges: bool = True) -> tuple:
+    """n operand pairs on the card (random canonical values, with the edge
+    pairs as the last rows where n has room for them) and their Python
+    integers."""
+    tail = EDGE_PAIRS if edges and n >= len(EDGE_PAIRS) else []
+    pairs = [(int.from_bytes(rng.bytes(48), "big") % P, int.from_bytes(rng.bytes(48), "big") % P)
+             for _ in range(n - len(tail))] + tail
+    av, bv = [x for x, _ in pairs], [y for _, y in pairs]
+    return torch.from_numpy(fq.to_limbs(av)).cuda(), torch.from_numpy(fq.to_limbs(bv)).cuda(), av, bv
+
+
+def fq_plain_op(op: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return fq_plain.mul(a, b) if op == "mul" else fq_plain.addsub(a, b, OPS[op][0])
+
+
+# each K3/K4 variant: the main path's lane-group kernel and the one-thread
+# kernel kept for measurement, with the tag of its kernel symbol in fq.cu
+FQ_SYMBOLS = {"main": "lanes", "thread": "thread"}
+
+
+def fq_variants(op: str) -> dict:
+    """K3 (op "mul") or K4 as each kernel computes it: "main" (the main
+    path's wrapper) and "thread" (measurement only)."""
+    code = OPS[op][0]
+    if op == "mul":
+        return {"main": fq_cuda.fq_mul, "thread": fq_cuda.fq_mul_thread}
+    return {"main": lambda a, b: fq_cuda.fq_addsub(a, b, code),
+            "thread": lambda a, b: fq_cuda.fq_addsub_thread(a, b, code)}
+
+
+def phase_fq_kernels(report: dict, seed: int, sizes: list, label: str) -> None:
+    """Every K3/K4 kernel bit-exact against its plain version at each of
+    ``sizes`` elements, random values and (where there is room) the edge
+    pairs; against Python integers on a sample and every edge row; a
+    stride-0 operand in either position. ``report["fq_checks"]`` keeps
+    each kernel's largest error over every call."""
+    rng = np.random.default_rng([seed, *sizes])
+    errs = report.setdefault("fq_checks", {})
+    for n in sizes:
+        a, b, av, bv = field_pairs(n, rng)
+        edges = len(EDGE_PAIRS) if n >= len(EDGE_PAIRS) else 0
+        sample = list(range(0, n - edges, max(1, (n - edges) // 64))) + list(range(n - edges, n))
+        for op, (_, ref) in OPS.items():
+            want = fq_plain_op(op, a, b)
+            want_ints = [ref(av[i], bv[i]) for i in sample]
+            name = "fq_mul" if op == "mul" else "fq_addsub"
+            for variant, fn in fq_variants(op).items():
+                got = fn(a, b)
+                torch.cuda.synchronize()
+                err = max_abs_err(got, want)
+                require(err == 0, f"{name} {variant} {op} disagrees with its plain version at {n} (max abs err {err})")
+                require(list(fq.from_limbs(got[sample].cpu().numpy())) == want_ints,
+                        f"{name} {variant} {op} disagrees with Python integers at {n}")
+                for x, y in ((a[:1], b), (a, b[:1])):
+                    e = max_abs_err(fn(x, y), fq_plain_op(op, x, y))
+                    require(e == 0, f"{name} {variant} {op} with a stride-0 operand disagrees (max abs err {e})")
+                key = name if variant == "main" else f"{name}_{variant}"
+                errs[key] = max(errs.get(key, 0), err)
+    report.setdefault("fq_checked_sizes", []).extend(sizes)
+    print(f"[kernels] K3/K4 ({label}): main (lane-group) and one-thread kernels bit-exact at {sizes} elements, "
+          f"{len(EDGE_PAIRS)} edge pairs where n has room, ops {list(OPS)}, stride 0 either side: {errs}",
+          flush=True)
+
+
+def phase_fq_timing(report: dict, card: "Card", seed: int, hist: dict) -> None:
+    """K3/K4's lane-group and one-thread kernels timed in turns, one
+    profiler window per size, at 4,608 and 16,384 elements and at each
+    kernel's two most frequent sizes of a flush (``hist``: elements ->
+    launches), beside the bound and the launch floor; K4 as op 1 (sub).
+    Each kernel's record is taken at its most frequent size."""
+    rng = np.random.default_rng(seed + 1)
+    floor = report["probe"]["ms"]
     out = {}
-    for n in (128 * 2 * 18, 16384):
-        vals = [int.from_bytes(rng.bytes(48), "big") % p for _ in range(2 * n)]
-        a = torch.from_numpy(fq.to_limbs(vals[:n])).cuda()
-        b = torch.from_numpy(fq.to_limbs(vals[n:])).cuda()
-        sample = list(range(0, n, n // 64))
-        rinv = pow(1 << 384, -1, p)
-        for name, ops, kern, plain, want_int in (
-            ("fq_mul", K3_INT_OPS, fq_cuda.fq_mul, fq_plain.mul, lambda x, y: x * y * rinv % p),
-            ("fq_addsub", K4_INT_OPS, lambda x, y: fq_cuda.fq_addsub(x, y, 1),
-             lambda x, y: fq_plain.addsub(x, y, 1), lambda x, y: (x - y) % p),
-        ):
-            got, want = kern(a, b), plain(a, b)
-            torch.cuda.synchronize()
-            err = max_abs_err(got, want)
-            require(err == 0, f"{name} disagrees with its plain version at {n} (max abs err {err})")
-            ints = fq.from_limbs(got[sample].cpu().numpy())
-            require(list(ints) == [want_int(vals[i], vals[n + i]) for i in sample],
-                    f"{name} disagrees with Python integers")
-            if name == "fq_addsub":  # the other two op codes, bit-exact too
-                for op in (0, 2):
-                    e = max_abs_err(fq_cuda.fq_addsub(a, b, op), fq_plain.addsub(a, b, op))
-                    require(e == 0, f"fq_addsub op {op} disagrees with its plain version")
-            ms = device_ms(lambda: kern(a, b), f"{name}_kernel")
-            call_ms = cuda_ms(lambda: kern(a, b))
-            plain_ms = cuda_ms(lambda: plain(a, b), reps=5)
+    for name, op, ops in (("fq_mul", "mul", K3_INT_OPS), ("fq_addsub", "sub", K4_INT_OPS)):
+        top = sorted(hist[name], key=lambda n: (-hist[name][n], n))[:2]
+        variants = fq_variants(op)
+        by_size = {}
+        for n in dict.fromkeys(top + [128 * 2 * 18, 16384]):
+            a, b, _, _ = field_pairs(n, rng, edges=False)
+            ms = device_ms_turns({f"{name}_{FQ_SYMBOLS[k]}_kernel": (lambda f=f: f(a, b)) for k, f in variants.items()})
+            ms = {k: ms[f"{name}_{FQ_SYMBOLS[k]}_kernel"] for k in variants}
             bound, bound_by = card.bound_ms(n, ops, FQ_BYTES * n)
-            rec = {"elements": n, "max_abs_err": err, "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
-                   "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
-            out.setdefault(name, rec)  # the first size, the Fq12 multiply, is the record's
-            out[f"{name}@{n}"] = rec
-            print(f"[kernels] {name}: {n} elements {ms:.4f} ms on the card, {call_ms:.4f} ms a call, "
-                  f"plain {plain_ms:.3f} ms, "
-                  f"bound {bound:.5f} ms ({bound_by})", flush=True)
-    report["kernels"].update(out)
+            by_size[n] = {"ms": ms, "bound_ms": bound, "bound_by": bound_by, "flush_launches": hist[name].get(n, 0)}
+            print(f"[fq_timing] {name} at {n} elements ({hist[name].get(n, 0)} launches a flush): "
+                  + ", ".join(f"{k} {v * 1e3:.3f} us" for k, v in ms.items())
+                  + f"; bound {bound * 1e3:.3f} us ({bound_by}), launch floor {floor * 1e3:.3f} us", flush=True)
+        n = top[0]
+        a, b, _, _ = field_pairs(n, rng, edges=False)
+        plain_ms = cuda_ms(lambda: fq_plain_op(op, a, b), reps=5)
+        for variant, fn in variants.items():
+            out[name if variant == "main" else f"{name}_{variant}"] = {
+                "elements": n, "measurement_only": variant != "main", "ms": by_size[n]["ms"][variant],
+                "call_ms": cuda_ms(lambda: fn(a, b)), "plain_ms": plain_ms, "bound_ms": by_size[n]["bound_ms"],
+                "bound_by": by_size[n]["bound_by"], "floor_ms": floor, "library_ms": None, "by_size": by_size,
+            }
+    report["fq_timing"] = out
 
 
 def phase_kernels(report: dict, card: Card, seed: int, k2_rows: int) -> None:
@@ -411,9 +511,12 @@ class TimedVerifier(bls.DeferredVerifier):
                          "kernels": kernels}
 
 
-def bls_phase(report: dict, spec, states: tuple, slots: int, seed: int) -> dict:
+def bls_phase(report: dict, spec, states: tuple, slots: int, flush_launches) -> tuple:
     """Signed blocks of 128 aggregates, one deferred flush each on the card.
-    The first block's flush is traced; checks/s is read from the others."""
+    The first block's flush is traced; checks/s is read from the others.
+    Each flush must make ``flush_launches`` K3 + K4 launches (None: not
+    checked). Returns the main path's counts and the launch-size histogram
+    of the first untraced flush (kernel -> elements -> launches)."""
     dev_state, host_state = states
     bls.bls_active = True
     blocks, host_roots, host_times = [], [], []
@@ -436,6 +539,7 @@ def bls_phase(report: dict, spec, states: tuple, slots: int, seed: int) -> dict:
     for i, (sb, want) in enumerate(zip(blocks, host_roots)):
         bls_torch.reset_stage_seconds()
         before = dict(fq_cuda.launches)
+        before_sizes = {k: dict(fq_cuda.sizes[k]) for k in fq_cuda.KERNELS}
         decoded = bls_torch._pubkeys().decoded
         t0 = time.perf_counter()
         verifier = harness.apply_block_deferred(spec, dev_state, sb, verifier=TimedVerifier(trace=i == 0))
@@ -457,8 +561,13 @@ def bls_phase(report: dict, spec, states: tuple, slots: int, seed: int) -> dict:
             "stage_s": dict(bls_torch.stage_seconds), "stage_sum_s": sum(bls_torch.stage_seconds.values()),
             "traced": verifier.profiled is not None, "pubkeys_decoded": bls_torch._pubkeys().decoded - decoded,
             "launches": {k: fq_cuda.launches[k] - before[k] for k in fq_cuda.KERNELS},
+            "sizes": {k: {n: c - before_sizes[k].get(n, 0) for n, c in fq_cuda.sizes[k].items()
+                          if c != before_sizes[k].get(n, 0)} for k in fq_cuda.KERNELS},
             "oracle_rows": len(sampled), "oracle_s": oracle_s,
         }
+        made = sum(rec["launches"].values())
+        require(flush_launches is None or made == flush_launches,
+                f"slot {rec['slot']}: the flush made {made} K3 + K4 launches, not {flush_launches}")
         if i == 0:
             rec["profiled"] = verifier.profiled
             print(f"[bls] traced flush: {verifier.profiled['wall_s']:.3f}s wall, card busy "
@@ -474,16 +583,21 @@ def bls_phase(report: dict, spec, states: tuple, slots: int, seed: int) -> dict:
     counts = dev.counters()
     launches = {k: sum(r["launches"][k] for r in per_block) for k in fq_cuda.KERNELS}
     timed = [r for r in per_block if not r["traced"]] or per_block
+    hist = timed[0]["sizes"]
+    for k in fq_cuda.KERNELS:
+        ranked = sorted(hist[k].items(), key=lambda kv: (-kv[1], kv[0]))
+        print(f"[bls] slot {timed[0]['slot']} flush, {k} launches by elements (elements: launches, most "
+              f"frequent first; {sum(hist[k].values())} launches, {len(ranked)} sizes): {dict(ranked)}", flush=True)
     report["bls"] = {
         "slots": slots, "attestations": n_att, "host_build_s": host_times, "blocks": per_block,
-        "launches": launches, "sha256_counts": counts,
+        "launches": launches, "sha256_counts": counts, "flush_sizes": hist,
         "flush_device_idle_share": per_block[0]["profiled"]["device_idle_share"],
         "checks_per_s": sum(r["checks"] for r in timed) / sum(r["flush_s"] for r in timed),
     }
     print(f"[bls] {slots} signed blocks of {n_att[0]} attestations verified on the card; "
           f"{report['bls']['checks_per_s']:.2f} checks/s over the untraced flushes; K3/K4 launches {launches}; "
           f"card idle {report['bls']['flush_device_idle_share']:.4%} of the traced flush", flush=True)
-    return {"launches": {**counts["launches"], **launches}}
+    return {"launches": {**counts["launches"], **launches}}, hist
 
 
 def floor_probe(verifier) -> dict:
@@ -540,7 +654,7 @@ def tampered_phase(report: dict, spec, states: tuple, seed: int) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--validators", type=int, default=1 << 19)
+    ap.add_argument("--validators", type=int, default=DEFAULT_VALIDATORS)
     ap.add_argument("--slots", type=int, default=4)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -556,7 +670,7 @@ def main() -> int:
     n_blocks = (args.validators + 255) // 256
     k2_rows = spec.SHUFFLE_ROUND_COUNT * (1 + n_blocks)  # the shuffle's one sha256_many_small call
     phase_kernels(report, card, args.seed, k2_rows)
-    phase_fq_kernels(report, card, args.seed)
+    phase_fq_kernels(report, args.seed, [128 * 2 * 18, 16384], "an Fq12 product of 128 Miller loops, a decode")
 
     print("[calibrate]", json.dumps(dev.use_device_hasher(calibrate=True)), flush=True)
     dev.use_host_hasher()
@@ -576,10 +690,14 @@ def main() -> int:
 
     root_counts = state_root_phase(report, spec, states)
     transition_counts = transition_phase(report, spec, states, args.slots)
-    bls_counts = bls_phase(report, spec, states, args.slots, args.seed)
+    expect = FLUSH_LAUNCHES if args.validators == DEFAULT_VALIDATORS else None
+    bls_counts, hist = bls_phase(report, spec, states, args.slots, expect)
     tampered_phase(report, spec, states, args.seed)
     bls.use_reference()
     dev.use_host_hasher()
+    phase_fq_kernels(report, args.seed, sorted(set(hist["fq_mul"]) | set(hist["fq_addsub"])),
+                     "every size a flush launched")
+    phase_fq_timing(report, card, args.seed, hist)
     report["total_s"] = time.perf_counter() - t_start
 
     records = []
@@ -593,15 +711,28 @@ def main() -> int:
         if name == "add_one":
             k, launches = report["probe"], report["probe"]["launches"]
         else:
-            k = report["kernels"][name]
+            k = ({**report["fq_timing"][name], "max_abs_err": report["fq_checks"][name]}
+                 if name.startswith("fq_") else report["kernels"][name])
             launches = sum(c["launches"].get(name, 0) for c in (root_counts, transition_counts, bls_counts))
         require(launches > 0, f"{name} was not launched on the main path")
         records.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-            "library_ms": k["library_ms"],
+            "library_ms": k["library_ms"], **({"elements": k["elements"]} if name.startswith("fq_") else {}),
         })
+    # the one-thread kernels of K3/K4, timed beside the main path's kernels
+    # and launched nowhere on it
+    for name, k in report["fq_timing"].items():
+        if k["measurement_only"]:
+            replaces = "consensus_specs_tpu/ops/fq.py:175" if name.startswith("fq_mul") else \
+                "consensus_specs_tpu/ops/fq.py:115"
+            records.append({
+                "name": name, "route": "cuda", "source": FQ_SOURCE, "replaces": replaces,
+                "launches": 0, "measurement_only": True, "elements": k["elements"],
+                "max_abs_err": report["fq_checks"][name], "ms": k["ms"], "plain_ms": k["plain_ms"],
+                "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": None,
+            })
     print("[report]", json.dumps(report, default=str))
     print(json.dumps({
         "kernels": records,

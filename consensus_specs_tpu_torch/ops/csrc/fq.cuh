@@ -1,20 +1,28 @@
-// BLS12-381 base-field arithmetic for one thread: the device functions of
-// the K3 (fq_mul) and K4 (fq_addsub) kernels of fq.cu, kept in a header so
-// that later fused kernels (the Miller loop, the final exponentiation, the
-// pow chains of fq_inv and fq2_sqrt) can build on the same code.
+// BLS12-381 base-field arithmetic: the device functions of the K3 (fq_mul)
+// and K4 (fq_addsub) kernels of fq.cu, kept in a header so that later fused
+// kernels (the Miller loop, the final exponentiation, the pow chains of
+// fq_inv and fq2_sqrt) can build on the same code. Two forms:
 //
-// Two layouts meet here:
+// - one thread per element (namespace fq): the kernels of the first port,
+//   kept for measurement and for fused kernels that hold a whole element
+//   in one thread;
+// - a group of G lanes of a warp per element (namespace fq::lanes, below):
+//   the kernels on the main path.
+//
+// Layouts:
 // - the port's tensor layout: 32 canonical 12-bit limbs in int32 lanes,
 //   little-endian (the JAX package's ops/fq.py layout, kept so that limb
 //   tensors compare directly with it);
-// - the arithmetic layout: 12 little-endian 32-bit words.
-// R = 2^384 in both (32 x 12 = 12 x 32 bits), so a value's Montgomery form
-// is the same integer in either layout, and repacking at the boundary
-// (pack/unpack below) is exact.
+// - the one-thread arithmetic layout: 12 little-endian 32-bit words;
+// - the lane-group layout: 16 little-endian 24-bit digits, two limbs each.
+// R = 2^384 in all three (32 x 12 = 12 x 32 = 16 x 24 bits), so a value's
+// Montgomery form is the same integer in every layout, and repacking at the
+// boundary is exact.
 //
 // Every function takes and returns values below p. The header compiles as
-// plain C++ too (without nvcc the qualifiers fall away), so its arithmetic
-// can be checked by a host compiler against the plain PyTorch version.
+// plain C++ too (without nvcc the qualifiers fall away, and a group's lanes
+// run in lockstep over arrays), so its arithmetic can be checked by a host
+// compiler against the plain PyTorch version.
 #pragma once
 
 #include <cstdint>
@@ -149,5 +157,351 @@ FQ_HD void sub_mod(uint32_t r[kWords], const uint32_t a[kWords], const uint32_t 
     c >>= 32;
   }
 }
+
+// ---------------------------------------------------------------------------
+// Lane groups. An element is spread over G lanes (G = 4 or 8; G divides
+// 32, so a warp holds 32 / G elements): lane l holds the D = 16 / G digits
+// D l .. D l + D - 1, which are the limbs 2 D l .. 2 D l + 2 D - 1 of the
+// tensor layout, so each lane loads and stores its own 8 D bytes and the
+// group moves its element's 128-byte line together, with no repacking
+// across lanes.
+//
+// Code for a group is written once, for every lane: a lane-local value is a
+// Lanes<T, G>, read and written as v[l] inside FQ_LANES(l, G) { ... }, and
+// the lanes meet only in the two exchanges, group_ballot and group_shfl.
+// With nvcc a Lanes holds the one value of the running lane, FQ_LANES runs
+// its body once with l = the lane's index in its group, and the exchanges
+// are the warp intrinsics. Without nvcc a Lanes holds all G values,
+// FQ_LANES loops over the lanes, and the exchanges read the arrays: the
+// lanes run in lockstep, one step for all of them before the next. A body
+// must therefore read only its own lane's entries ([l]) and uniform values:
+// on the card x[k] is the running lane's value whatever k. The host build
+// holds code to that rule: an index other than the running step's lane, or
+// an index outside a step, counts in lane_faults (and reads lane 0), which
+// the host test requires to stay 0.
+namespace lanes {
+
+constexpr int kDigits = 16;
+constexpr int kDigitBits = 24;
+constexpr uint32_t kDigitMask = 0xffffffu;
+constexpr uint32_t kN0Digit = kN0 & kDigitMask;  // -p^-1 mod 2^24
+
+// p in 24-bit digits, little-endian: a table, since a lane reads the digits
+// of its own place (in constant memory on the card)
+#if defined(__CUDACC__)
+__constant__
+#else
+constexpr
+#endif
+    uint32_t kPDigits[kDigits] = {0xffaaabu, 0xffffffu, 0xffb9feu, 0xb153ffu, 0xabfffeu, 0xf6241eu,
+                                  0xa0f6b0u, 0x6730d2u, 0x8512bfu, 0x4b84f3u, 0xd76477u, 0x434bacu,
+                                  0x1ba7b6u, 0xe69a4bu, 0xea397fu, 0x1a0111u};
+
+// a b + c, a 32 x 32 -> 64-bit multiply-add (one instruction on the card)
+FQ_HD uint64_t mad_wide(uint32_t a, uint32_t b, uint64_t c) {
+#if defined(__CUDA_ARCH__)
+  uint64_t r;
+  asm("mad.wide.u32 %0, %1, %2, %3;" : "=l"(r) : "r"(a), "r"(b), "l"(c));
+  return r;
+#else
+  return (uint64_t)a * b + c;
+#endif
+}
+
+#if defined(__CUDACC__)
+#define FQ_GD __device__ __forceinline__
+template <class T, int G>
+struct Lanes {
+  T v;
+  FQ_GD T& operator[](int) { return v; }
+  FQ_GD const T& operator[](int) const { return v; }
+};
+#define FQ_LANES(l, G) for (int l = (int)(threadIdx.x % (G)), l##_once = 1; l##_once; l##_once = 0)
+
+// bit l of the result: pred of the group's lane l (the same word on every lane)
+template <int G>
+FQ_GD uint32_t group_ballot(const Lanes<bool, G>& pred) {
+  const uint32_t warp = __ballot_sync(0xffffffffu, pred.v);
+  return (warp >> ((threadIdx.x & 31u) & ~(uint32_t)(G - 1))) & ((1u << G) - 1u);
+}
+
+// lane l receives v of the group's lane src[l] (0 <= src[l] < G)
+template <int G>
+FQ_GD Lanes<uint32_t, G> group_shfl(const Lanes<uint32_t, G>& v, const Lanes<int, G>& src) {
+  return {__shfl_sync(0xffffffffu, v.v, src.v, G)};
+}
+#else
+#define FQ_GD inline
+inline thread_local int running_lane = -1;  // the lane of the running FQ_LANES step, -1 between steps
+inline thread_local long lane_faults = 0;
+
+// starts lane l's step of a group of g lanes; false (and no lane) past the last
+inline bool enter_lane(int l, int g) {
+  running_lane = l < g ? l : -1;
+  return l < g;
+}
+
+template <class T, int G>
+struct Lanes {
+  T v[G];
+  T& operator[](int l) { return v[own(l)]; }
+  const T& operator[](int l) const { return v[own(l)]; }
+  static int own(int l) {
+    if (l == running_lane) return l;
+    ++lane_faults;
+    return 0;
+  }
+};
+#define FQ_LANES(l, G) for (int l = 0; ::fq::lanes::enter_lane(l, (G)); ++l)
+
+template <int G>
+FQ_GD uint32_t group_ballot(const Lanes<bool, G>& pred) {
+  uint32_t bits = 0;
+  for (int l = 0; l < G; ++l) bits |= (uint32_t)pred.v[l] << l;
+  return bits;
+}
+
+template <int G>
+FQ_GD Lanes<uint32_t, G> group_shfl(const Lanes<uint32_t, G>& v, const Lanes<int, G>& src) {
+  Lanes<uint32_t, G> out;
+  for (int l = 0; l < G; ++l) out.v[l] = v.v[src.v[l]];
+  return out;
+}
+#endif
+
+// v of lane `from` on every lane
+template <int G>
+FQ_GD Lanes<uint32_t, G> broadcast(const Lanes<uint32_t, G>& v, int from) {
+  Lanes<int, G> src;
+  FQ_LANES(l, G) src[l] = from;
+  return group_shfl<G>(v, src);
+}
+
+// lane l receives v of lane l + 1; the top lane receives 0
+template <int G>
+FQ_GD Lanes<uint32_t, G> from_next(const Lanes<uint32_t, G>& v) {
+  Lanes<int, G> src;
+  FQ_LANES(l, G) src[l] = l + 1 < G ? l + 1 : l;
+  Lanes<uint32_t, G> out = group_shfl<G>(v, src);
+  FQ_LANES(l, G) out[l] = l + 1 < G ? out[l] : 0u;
+  return out;
+}
+
+// lane l receives v of lane l - 1; lane 0 receives 0
+template <int G>
+FQ_GD Lanes<uint32_t, G> from_prev(const Lanes<uint32_t, G>& v) {
+  Lanes<int, G> src;
+  FQ_LANES(l, G) src[l] = l > 0 ? l - 1 : 0;
+  Lanes<uint32_t, G> out = group_shfl<G>(v, src);
+  FQ_LANES(l, G) out[l] = l > 0 ? out[l] : 0u;
+  return out;
+}
+
+// Carry-lookahead over a group: from each lane's generate bit (a carry out
+// of the lane whatever comes in) and propagate bit (a carry out exactly
+// when one comes in), the carry into every lane at once, as bit l of
+// ((G|P) + G) ^ (G|P) ^ G; bit G is the carry out of the top lane. This is
+// fq_plain's packed generate/propagate addition, over lanes instead of limbs.
+FQ_HD uint32_t lookahead(uint32_t gen, uint32_t prop) {
+  const uint32_t x = gen | prop;
+  return (x + gen) ^ x ^ gen;
+}
+
+// Carry the digits d into canonical 24-bit digits of the same value mod
+// 2^384; returns the carry out of the top. Each digit must be at most
+// 2^25 - 2 and each lane's digits together below 2^(24 D + 1) - 1, so that
+// a digit carries at most 1 and a lane that generates a carry does not
+// also propagate one.
+template <int G>
+FQ_GD uint32_t settle(Lanes<uint32_t, G> d[kDigits / G]) {
+  constexpr int D = kDigits / G;
+  Lanes<bool, G> gen, prop;
+  FQ_LANES(l, G) {
+    uint32_t c = 0;
+    bool ones = true;
+#pragma unroll
+    for (int k = 0; k < D; ++k) {
+      const uint32_t v = d[k][l] + c;
+      d[k][l] = v & kDigitMask;
+      c = v >> kDigitBits;
+      ones = ones && d[k][l] == kDigitMask;
+    }
+    gen[l] = c != 0;
+    prop[l] = ones;
+  }
+  const uint32_t carries = lookahead(group_ballot<G>(gen), group_ballot<G>(prop));
+  FQ_LANES(l, G) {
+    uint32_t c = (carries >> l) & 1u;
+#pragma unroll
+    for (int k = 0; k < D; ++k) {
+      const uint32_t v = d[k][l] + c;
+      d[k][l] = v & kDigitMask;
+      c = v >> kDigitBits;
+    }
+  }
+  return (carries >> G) & 1u;
+}
+
+// r = x - y mod 2^384 over canonical digits; returns the borrow out of the
+// top (1 where x < y). r may not alias x or y.
+template <int G>
+FQ_GD uint32_t sub_digits(Lanes<uint32_t, G> r[kDigits / G], const Lanes<uint32_t, G> x[kDigits / G],
+                          const Lanes<uint32_t, G> y[kDigits / G]) {
+  constexpr int D = kDigits / G;
+  Lanes<bool, G> gen, prop;
+  FQ_LANES(l, G) {
+    uint32_t b = 0;
+    bool zero = true;
+#pragma unroll
+    for (int k = 0; k < D; ++k) {
+      const uint32_t v = x[k][l] - y[k][l] - b;
+      b = v >> 31;
+      zero = zero && (v & kDigitMask) == 0;
+    }
+    gen[l] = b != 0;
+    prop[l] = zero;  // the lane's x equals its y: a borrow in passes through
+  }
+  const uint32_t borrows = lookahead(group_ballot<G>(gen), group_ballot<G>(prop));
+  FQ_LANES(l, G) {
+    uint32_t b = (borrows >> l) & 1u;
+#pragma unroll
+    for (int k = 0; k < D; ++k) {
+      const uint32_t v = x[k][l] - y[k][l] - b;
+      r[k][l] = v & kDigitMask;
+      b = v >> 31;
+    }
+  }
+  return (borrows >> G) & 1u;
+}
+
+template <int G>
+FQ_GD void load_p(Lanes<uint32_t, G> p[kDigits / G]) {
+  constexpr int D = kDigits / G;
+  FQ_LANES(l, G) {
+#pragma unroll
+    for (int k = 0; k < D; ++k) p[k][l] = kPDigits[D * l + k];
+  }
+}
+
+// r = x - p if x >= p, else x (x canonical, below 2p)
+template <int G>
+FQ_GD void cond_sub_p(Lanes<uint32_t, G> r[kDigits / G], const Lanes<uint32_t, G> x[kDigits / G]) {
+  constexpr int D = kDigits / G;
+  Lanes<uint32_t, G> p[D], d[D];
+  load_p<G>(p);
+  const uint32_t below = sub_digits<G>(d, x, p);
+  FQ_LANES(l, G) {
+#pragma unroll
+    for (int k = 0; k < D; ++k) r[k][l] = below ? x[k][l] : d[k][l];
+  }
+}
+
+// K4's body: r = (a + b), (a - b) or (-b) mod p for op 0, 1, 2. op must be
+// the same on every lane of the warp.
+template <int G>
+FQ_GD void addsub(Lanes<uint32_t, G> r[kDigits / G], const Lanes<uint32_t, G> a[kDigits / G],
+                  const Lanes<uint32_t, G> b[kDigits / G], int op) {
+  constexpr int D = kDigits / G;
+  Lanes<uint32_t, G> s[D], p[D];
+  if (op == 0) {
+    FQ_LANES(l, G) {
+#pragma unroll
+      for (int k = 0; k < D; ++k) s[k][l] = a[k][l] + b[k][l];
+    }
+    settle<G>(s);  // a + b < 2p < 2^382: no carry out
+    cond_sub_p<G>(r, s);
+    return;
+  }
+  Lanes<uint32_t, G> x[D];
+  FQ_LANES(l, G) {
+#pragma unroll
+    for (int k = 0; k < D; ++k) x[k][l] = op == 2 ? 0u : a[k][l];
+  }
+  // where x < y add p back; the carry out of the top cancels the wrap
+  const uint32_t borrow = sub_digits<G>(s, x, b);
+  load_p<G>(p);
+  FQ_LANES(l, G) {
+#pragma unroll
+    for (int k = 0; k < D; ++k) r[k][l] = s[k][l] + (borrow ? p[k][l] : 0u);
+  }
+  settle<G>(r);
+}
+
+// K3's body: the Montgomery product r = a b / 2^384 mod p, operand-scanning
+// over the 16 digits of b. Each lane keeps its D digits of the running sum
+// as 64-bit accumulators, not carried: a row adds a b_i and m p (each
+// product below 2^48) to every digit, and a digit takes at most 16 rows of
+// them and a 30-bit carry, so it stays below 2^54. Per row the group
+// exchanges b_i (from its lane) and m = t_0 (-p^-1) mod 2^24 (from lane 0,
+// whose lowest digit no carry reaches); then, to divide by 2^24, every
+// digit moves one place down: a lane's lowest digit keeps its bits above 24
+// as the carry into its next digit and passes its low 24 bits to the lane
+// below (lane 0's are zero). The carries are resolved once, after the last
+// row: two passes of carry words to the next lane, then one carry-lookahead
+// (settle). The sum stays below 2p, so one conditional subtraction ends it.
+template <int G>
+FQ_GD void mont_mul(Lanes<uint32_t, G> r[kDigits / G], const Lanes<uint32_t, G> a[kDigits / G],
+                    const Lanes<uint32_t, G> b[kDigits / G]) {
+  constexpr int D = kDigits / G;
+  Lanes<uint32_t, G> p[D];
+  Lanes<uint64_t, G> t[D];
+  load_p<G>(p);
+  FQ_LANES(l, G) {
+#pragma unroll
+    for (int k = 0; k < D; ++k) t[k][l] = 0;
+  }
+#pragma unroll
+  for (int i = 0; i < kDigits; ++i) {
+    const Lanes<uint32_t, G> bi = broadcast<G>(b[i % D], i / D);
+    Lanes<uint32_t, G> m0;
+    FQ_LANES(l, G) {
+#pragma unroll
+      for (int k = 0; k < D; ++k) t[k][l] = mad_wide(a[k][l], bi[l], t[k][l]);
+      m0[l] = ((uint32_t)t[0][l] * kN0Digit) & kDigitMask;
+    }
+    const Lanes<uint32_t, G> m = broadcast<G>(m0, 0);
+    Lanes<uint32_t, G> down;
+    FQ_LANES(l, G) {
+#pragma unroll
+      for (int k = 0; k < D; ++k) t[k][l] = mad_wide(m[l], p[k][l], t[k][l]);
+      down[l] = (uint32_t)t[0][l] & kDigitMask;  // 0 on lane 0: t_0 + m p_0 is a multiple of 2^24
+    }
+    down = from_next<G>(down);
+    FQ_LANES(l, G) {
+      const uint64_t carry = t[0][l] >> kDigitBits;
+#pragma unroll
+      for (int k = 0; k + 1 < D; ++k) t[k][l] = t[k + 1][l];
+      t[D - 1][l] = down[l];
+      t[0][l] += carry;
+    }
+  }
+  // carry: each digit keeps 24 bits and passes the rest (< 2^30) one digit up
+  Lanes<uint32_t, G> d[D], c;
+  FQ_LANES(l, G) {
+#pragma unroll
+    for (int k = 0; k < D; ++k) d[k][l] = (uint32_t)t[k][l] & kDigitMask;
+#pragma unroll
+    for (int k = 1; k < D; ++k) d[k][l] += (uint32_t)(t[k - 1][l] >> kDigitBits);
+    c[l] = (uint32_t)(t[D - 1][l] >> kDigitBits);
+  }
+  c = from_prev<G>(c);  // the top lane's carry is 0: the sum is below 2p < 2^382
+  // each digit is now below 2^31: ripple inside the lane, pass the carry (< 2^8) up
+  FQ_LANES(l, G) {
+    uint32_t carry = c[l];
+#pragma unroll
+    for (int k = 0; k < D; ++k) {
+      const uint32_t v = d[k][l] + carry;
+      d[k][l] = v & kDigitMask;
+      carry = v >> kDigitBits;
+    }
+    c[l] = carry;
+  }
+  c = from_prev<G>(c);
+  FQ_LANES(l, G) d[0][l] += c[l];  // below 2^24 + 2^8: one carry-lookahead settles it
+  settle<G>(d);
+  cond_sub_p<G>(r, d);
+}
+
+}  // namespace lanes
 
 }  // namespace fq

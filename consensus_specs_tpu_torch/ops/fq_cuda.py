@@ -1,14 +1,20 @@
 """Bind and launch the hand-written base-field kernels (csrc/fq.cu): K3
-``fq_mul`` and K4 ``fq_addsub``.
+``fq_mul`` and K4 ``fq_addsub``, each a lane-group kernel (a group of lanes
+of a warp per element).
 
 The source (with its device header ``csrc/fq.cuh``) is built at first
 launch by ``cuda_build``; nothing is built when the module is imported.
 
 Each wrapper takes CUDA int32 tensors of canonical limbs ``(..., 32)``,
 broadcasts them, launches on PyTorch's current stream, raises if the
-launch is refused, and counts the launch in ``launches``. An operand that is one element for the whole batch (a
+launch is refused, and counts the launch in ``launches`` and its element
+count in ``sizes``. An operand that is one element for the whole batch (a
 curve or tower constant) is read with stride 0, not materialised. There is
 no fallback: a build or launch failure raises.
+
+For measurement only, ``fq_mul_thread``/``fq_addsub_thread`` launch the
+one-thread kernels of the first port; nothing on the main path calls
+them, and each counts under its own name.
 """
 from __future__ import annotations
 
@@ -21,8 +27,10 @@ import torch
 from . import cuda_build
 
 N_LIMBS = 32
-KERNELS = ("fq_mul", "fq_addsub")
-launches = dict.fromkeys(KERNELS, 0)
+KERNELS = ("fq_mul", "fq_addsub")  # the main path's
+MEASURED = ("fq_mul_thread", "fq_addsub_thread")
+launches = dict.fromkeys(KERNELS + MEASURED, 0)
+sizes: dict = {k: {} for k in KERNELS + MEASURED}  # elements a launch -> launches
 
 _lib = None
 _lock = threading.Lock()
@@ -31,8 +39,9 @@ _I64 = ctypes.c_int64
 
 
 def reset_counters() -> None:
-    for k in KERNELS:
+    for k in launches:
         launches[k] = 0
+        sizes[k].clear()
 
 
 def build(verbose: bool = False) -> Path:
@@ -47,6 +56,8 @@ def _load():
             _lib = cuda_build.load("fq.cu", ("fq.cuh",), {
                 "fq_mul_launch": [_P, _I64, _P, _I64, _P, _I64, _P],
                 "fq_addsub_launch": [_P, _I64, _P, _I64, _P, _I64, ctypes.c_int, _P],
+                "fq_mul_thread_launch": [_P, _I64, _P, _I64, _P, _I64, _P],
+                "fq_addsub_thread_launch": [_P, _I64, _P, _I64, _P, _I64, ctypes.c_int, _P],
             }, "fq_error_string")
     return _lib
 
@@ -102,6 +113,7 @@ def _launch(name: str, a: torch.Tensor, b: torch.Tensor, *extra) -> torch.Tensor
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: {lib.fq_error_string(rc).decode()}")
     launches[name] += 1
+    sizes[name][n] = sizes[name].get(n, 0) + 1
     return out
 
 
@@ -112,6 +124,21 @@ def fq_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def fq_addsub(a: torch.Tensor, b: torch.Tensor, op: int) -> torch.Tensor:
     """K4: (a + b), (a - b) or (-b) mod p for op 0, 1, 2 (``fq_plain.OP_*``)."""
-    if op not in (0, 1, 2):
-        raise ValueError(f"fq_addsub: unknown op {op}")
+    _check_op("fq_addsub", op)
     return _launch("fq_addsub", a, b, op)
+
+
+def _check_op(name: str, op: int) -> None:
+    if op not in (0, 1, 2):
+        raise ValueError(f"{name}: unknown op {op}")
+
+
+def fq_mul_thread(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The first port's one-thread K3 (measurement only)."""
+    return _launch("fq_mul_thread", a, b)
+
+
+def fq_addsub_thread(a: torch.Tensor, b: torch.Tensor, op: int) -> torch.Tensor:
+    """The first port's one-thread K4 (measurement only)."""
+    _check_op("fq_addsub_thread", op)
+    return _launch("fq_addsub_thread", a, b, op)

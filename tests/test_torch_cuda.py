@@ -52,41 +52,73 @@ def test_seams_on_the_card_match_hashlib(card):
     assert tdev.item_roots_device(data[: 32 * 64], 8) == tdev.item_roots_device(data[: 32 * 64], 8, device="cpu")
 
 
+P = fq.P_INT
+RINV = pow(1 << 384, -1, P)
+REF = {"mul": lambda x, y: x * y * RINV % P, "add": lambda x, y: (x + y) % P,
+       "sub": lambda x, y: (x - y) % P, "neg": lambda x, y: (-y) % P}
+CODE = {"add": 0, "sub": 1, "neg": 2}
+_EDGE = [0, 1, 2, P - 1, P - 2, (P - 1) // 2, (1 << 380) - 1, 1 << 380, (1 << 371) - 1, int("FFF" * 31, 16)]
+# every pair of edge values (a - b with a < b among them), sums just below,
+# at and just above p, and carries and borrows through every lane of a group
+EDGE_PAIRS = [(x, y) for x in _EDGE for y in _EDGE] + [
+    (x, (P + d - x) % P) for x in (1, 5, P // 2, (1 << 380) - 1) for d in (-1, 0, 1)]
+
+
 def _field(n, seed):
+    """n operand pairs: random values, with the edge pairs as the last
+    rows where n has room for them."""
     rng = np.random.default_rng(seed)
-    p = fq.P_INT
-    vals = [int.from_bytes(rng.bytes(48), "big") % p for _ in range(n)] + [0, 1, p - 1, p - 2]
-    return torch.from_numpy(fq.to_limbs(vals)), vals
+    edges = EDGE_PAIRS if n >= 2 * len(EDGE_PAIRS) else []
+    pairs = [tuple(int.from_bytes(rng.bytes(48), "big") % P for _ in range(2))
+             for _ in range(n - len(edges))] + edges
+    av, bv = [x for x, _ in pairs], [y for _, y in pairs]
+    return torch.from_numpy(fq.to_limbs(av)), torch.from_numpy(fq.to_limbs(bv)), av, bv
 
 
-@pytest.mark.parametrize("n", [1, 255, 4609])
+def _kernel(op, variant="main"):
+    """The K3/K4 wrapper of ``variant``: the main path's lane-group kernel
+    or ``thread``, the one-thread kernel kept for measurement."""
+    if op == "mul":
+        return {"main": fq_cuda.fq_mul, "thread": fq_cuda.fq_mul_thread}[variant]
+    code = CODE[op]
+    return {"main": lambda a, b: fq_cuda.fq_addsub(a, b, code),
+            "thread": lambda a, b: fq_cuda.fq_addsub_thread(a, b, code)}[variant]
+
+
+def _plain(op, a, b):
+    return fq_plain.mul(a, b) if op == "mul" else fq_plain.addsub(a, b, CODE[op])
+
+
+@pytest.mark.parametrize("n", [1, 31, 255, 4609, 16384])
 @pytest.mark.parametrize("op", ["mul", "add", "sub", "neg"])
 def test_field_kernels_match_plain_versions(card, n, op):
-    a, av = _field(n, n)
-    b, bv = _field(n, n + 1)
-    b = b.flip(0).contiguous()
-    bv = bv[::-1]
+    a, b, av, bv = _field(n, n)
     name = "fq_mul" if op == "mul" else "fq_addsub"
-    code = {"add": 0, "sub": 1, "neg": 2}.get(op)
-    before = fq_cuda.launches[name]
-    if op == "mul":
-        got, want = fq_cuda.fq_mul(a.to(card), b.to(card)), fq_plain.mul(a, b)
-    else:
-        got, want = fq_cuda.fq_addsub(a.to(card), b.to(card), code), fq_plain.addsub(a, b, code)
+    before, sized = fq_cuda.launches[name], fq_cuda.sizes[name].get(n, 0)
+    got = _kernel(op)(a.to(card), b.to(card))
     torch.cuda.synchronize()
-    assert fq_cuda.launches[name] == before + 1
-    assert torch.equal(got.cpu(), want)
-    p, rinv = fq.P_INT, pow(1 << 384, -1, fq.P_INT)
-    ref = {"mul": lambda x, y: x * y * rinv % p, "add": lambda x, y: (x + y) % p,
-           "sub": lambda x, y: (x - y) % p, "neg": lambda x, y: (-y) % p}[op]
-    assert list(fq.from_limbs(got.cpu())) == [ref(x, y) for x, y in zip(av, bv)]
+    assert fq_cuda.launches[name] == before + 1 and fq_cuda.sizes[name][n] == sized + 1
+    assert torch.equal(got.cpu(), _plain(op, a, b))
+    assert list(fq.from_limbs(got.cpu())) == [REF[op](x, y) for x, y in zip(av, bv)]
 
 
-def test_field_kernels_broadcast_a_single_operand(card):
-    a, _ = _field(60, 7)
-    c = a[:1]
-    got = fq_cuda.fq_mul(a.view(8, 8, 32).to(card), c.to(card))
-    assert torch.equal(got.cpu(), fq_plain.mul(a.view(8, 8, 32), c))
+@pytest.mark.parametrize("position", [0, 1])
+@pytest.mark.parametrize("op", ["mul", "add", "sub", "neg"])
+def test_field_kernels_broadcast_a_single_operand(card, op, position):
+    a, b, _, _ = _field(64, 7)
+    c = b[:1]  # one element for the whole batch: read with stride 0
+    x, y = (c, a.view(8, 8, 32)) if position == 0 else (a.view(8, 8, 32), c)
+    got = _kernel(op)(x.to(card), y.to(card))
+    assert got.shape == (8, 8, 32)
+    assert torch.equal(got.cpu(), _plain(op, x, y))
+
+
+@pytest.mark.parametrize("op", ["mul", "add", "sub", "neg"])
+def test_one_thread_kernels_equal_the_lane_group_kernels(card, op):
+    a, b, _, _ = _field(4609, 3)
+    a, b = a.to(card), b.to(card)
+    assert torch.equal(_kernel(op)(a, b), _kernel(op, "thread")(a, b))
+    assert torch.equal(_kernel(op, "thread")(a[:1], b), _kernel(op)(a[:1], b))  # stride 0
 
 
 def test_probe_kernel(card):

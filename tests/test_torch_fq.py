@@ -4,10 +4,11 @@ package's ``ops/fq.py`` under ``jax.jit`` and Python integers. Every
 comparison is bit-exact on the limbs: both packages return canonical
 residues. Inputs are seeded numpy limb arrays handed to both.
 
-The kernels' own arithmetic (``csrc/fq.cuh``, including the 12-bit to
-32-bit repacking at K3's boundary) also compiles as plain C++; where a host
-C++ compiler is present it is built here and held against the plain
-versions on the same inputs."""
+The kernels' own arithmetic (``csrc/fq.cuh``: the one-thread bodies with
+the 12-bit to 32-bit repacking at their boundary, and the lane-group bodies
+of K3/K4 with a group's lanes run in lockstep over arrays) also compiles as
+plain C++; where a host C++ compiler is present it is built here and held
+against the plain versions on the same inputs."""
 import ctypes
 import shutil
 import subprocess
@@ -24,6 +25,10 @@ P = fq.P_INT
 RINV = pow(1 << 384, -1, P)
 RNG = np.random.default_rng(0xF0)
 EDGE = [0, 1, 2, P - 1, P - 2, (P - 1) // 2, (1 << 380) % P, int("FFF" * 31, 16) % P, (1 << 371) - 1, 1 << 370]
+# sums just below, at and just above p; carries and borrows through every
+# limb and every lane of a group (2^380 - 1 is all ones below p's top bit)
+PAIRS = [(x, (P + d - x) % P) for x in (1, 5, P // 2, (1 << 380) - 1) for d in (-1, 0, 1)] + [
+    ((1 << 380) - 1, 1), (1 << 380, 1), (1, 1 << 380), ((1 << 380) - 1, (1 << 380) - 1), (0, P - 1)]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -40,9 +45,9 @@ def _rand(n):
 
 def _operands():
     """Random values, then every pair of edge values (carry and borrow
-    ripples through runs of 0xFFF and 0x000 limbs, 0, 1, p-1)."""
-    a = _rand(96) + EDGE * len(EDGE)
-    b = _rand(96) + [v for v in EDGE for _ in EDGE]
+    ripples through runs of 0xFFF and 0x000 limbs, 0, 1, p-1), then PAIRS."""
+    a = _rand(96) + EDGE * len(EDGE) + [x for x, _ in PAIRS]
+    b = _rand(96) + [v for v in EDGE for _ in EDGE] + [y for _, y in PAIRS]
     return fq.to_limbs(a), fq.to_limbs(b), a, b
 
 
@@ -121,6 +126,39 @@ extern "C" void host_fq(const int32_t* a, const int32_t* b, int32_t* out, long n
     for (int k = 0; k < 32; ++k) out[32 * i + k] = (int32_t)lo[k];
   }
 }
+
+// the lane-group bodies, G lanes an element; lane l's digits D l + k are
+// limbs 2 (D l + k) and 2 (D l + k) + 1, as fq.cu loads and stores them
+template <int G>
+void host_lanes(const int32_t* a, const int32_t* b, int32_t* out, long n, int op) {
+  constexpr int D = fq::lanes::kDigits / G;
+  for (long i = 0; i < n; ++i) {
+    fq::lanes::Lanes<uint32_t, G> x[D], y[D], r[D];
+    for (int l = 0; l < G; ++l)
+      for (int k = 0; k < D; ++k) {
+        const long j = 32 * i + 2 * (D * l + k);
+        x[k].v[l] = (uint32_t)a[j] | ((uint32_t)a[j + 1] << 12);
+        y[k].v[l] = (uint32_t)b[j] | ((uint32_t)b[j + 1] << 12);
+      }
+    if (op == 3) fq::lanes::mont_mul<G>(r, x, y);
+    else fq::lanes::addsub<G>(r, x, y, op);
+    for (int l = 0; l < G; ++l)
+      for (int k = 0; k < D; ++k) {
+        const long j = 32 * i + 2 * (D * l + k);
+        out[j] = (int32_t)(r[k].v[l] & 0xfffu);
+        out[j + 1] = (int32_t)(r[k].v[l] >> 12);
+      }
+  }
+}
+
+// returns the reads of another lane's entry (fq::lanes::lane_faults): 0
+// where the bodies keep to the rule that makes the lockstep run the card's
+extern "C" long host_fq_lanes(const int32_t* a, const int32_t* b, int32_t* out, long n, int op, int lanes) {
+  fq::lanes::lane_faults = 0;
+  if (lanes == 4) host_lanes<4>(a, b, out, n, op);
+  else host_lanes<8>(a, b, out, n, op);
+  return fq::lanes::lane_faults;
+}
 """
 
 
@@ -136,14 +174,27 @@ def host_kernel_lib(tmp_path_factory):
                     f"-I{cuda_build.CSRC}", "-o", str(lib), str(d / "host_fq.cpp")], check=True)
     handle = ctypes.CDLL(str(lib))
     handle.host_fq.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_long, ctypes.c_int]
+    handle.host_fq_lanes.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_long, ctypes.c_int, ctypes.c_int]
+    handle.host_fq_lanes.restype = ctypes.c_long
     return handle
 
 
-@pytest.mark.parametrize("op", [0, 1, 2, 3, 4])
-def test_kernel_arithmetic_matches_plain_versions(host_kernel_lib, op):
+# op 0/1/2 add/sub/neg (K4), 3 the product (K3), 4 the one-thread repacking
+# alone; lanes 0 is the one-thread arithmetic, 4 and 8 the lane-group bodies
+# (fq.cu builds K3 with 4 lanes and K4 with 8; fq.cuh takes either)
+_CASES = [pytest.param(op, 0, id=str(op)) for op in range(5)] + [
+    pytest.param(op, g, id=f"lanes{g}-{op}") for g in (4, 8) for op in range(4)]
+
+
+@pytest.mark.parametrize("op, lanes", _CASES)
+def test_kernel_arithmetic_matches_plain_versions(host_kernel_lib, op, lanes):
     a, b = np.ascontiguousarray(A), np.ascontiguousarray(B)
     out = np.zeros_like(a)
-    host_kernel_lib.host_fq(a.ctypes.data, b.ctypes.data, out.ctypes.data, len(a), op)
+    if lanes:
+        faults = host_kernel_lib.host_fq_lanes(a.ctypes.data, b.ctypes.data, out.ctypes.data, len(a), op, lanes)
+        assert faults == 0, f"{faults} reads of another lane's entry: the card would read its own"
+    else:
+        host_kernel_lib.host_fq(a.ctypes.data, b.ctypes.data, out.ctypes.data, len(a), op)
     ta, tb = torch.from_numpy(a), torch.from_numpy(b)
     if op == 4:
         want = ta  # 12-bit limbs -> 32-bit words -> 12-bit limbs
