@@ -5,7 +5,7 @@
 Phases, each raising on any mismatch:
 
 0. build: nvcc for sm_90a on every source of ops/csrc (sha256.cu, fq.cu,
-   probe.cu), one process each, all started together.
+   fq_pow.cu, probe.cu), one process each, all started together.
 1. env: torch/CUDA versions, the card's name and power limit; the liveness
    probe (probe.cu, ``x + 1`` on (8, 128) int32) against its plain version.
 2. kernels: K1 (sha256_blocks) and K2 (sha256_raw_blocks) on 2^20 random
@@ -16,8 +16,12 @@ Phases, each raising on any mismatch:
    edge values at 4,608 and 16,384 elements: the main path's lane-group
    kernels and the one-thread kernels kept for measurement, bit-exact
    against their plain versions and against Python integers on a sample,
-   with a stride-0 operand in either position. After the bls phase the
-   same check runs again at every size a flush launched.
+   with a stride-0 operand in either position. K5 (fq_pow) and K6
+   (fq2_pow), the pow chains, at 260 and 16,385 elements for each of the
+   four exponents ((p+1)/4, (p-1)/2, (p-3)/4, p-2) on random values and
+   edge values: bit-exact against their plain versions on the card and
+   against Python integers on a sample. After the bls phase the same
+   checks run again at every size a flush launched.
 3. state_root: a mainnet-preset phase0 BeaconState of ``--validators``
    validators with real keys (pubkey(i) = (i + 1) G1); hash_tree_root on
    the device hasher and on the host (hashlib) must agree, with >= 90% of
@@ -32,21 +36,24 @@ Phases, each raising on any mismatch:
    runs each under a deferred BLS verifier with the torch backend on the
    card: ONE flush per block verifies its ~130 checks (pubkey decode,
    signature decompression, hash-to-G2, aggregation, Miller loops, final
-   exponentiation, all on K3/K4). Every row must hold, a sample of rows
+   exponentiation, all on K3-K6). Every row must hold, a sample of rows
    must be decided the same by the host oracle, and the post-state root
    must equal the host's at every slot. Each flush is timed from its call
    to its last result (checks/s); the first is traced under torch.profiler
-   for the card's busy share. Each flush must make the K3 + K4 launches the
-   one-thread design made (no call site changed); the launch-size histogram
-   of the first untraced flush is printed. Then a tampered block (one
+   for the card's busy share. Each flush must make exactly the K3, K4, K5
+   and K6 launches of ``FLUSH_LAUNCHES``; the launch-size histogram of the
+   first untraced flush is printed. Then a tampered block (one
    attestation signed over another message): the card must reject exactly
    that row, the host oracle must agree, and the transition must raise on
    replay.
 6. fq timing: the K3/K4 kernels (lane-group and one-thread) timed in
    turns in one profiler window per size, at 4,608 and 16,384 elements and
    at each kernel's two most frequent sizes of that histogram, beside the
-   bound and the launch floor (the probe's device time). The kernels line
-   gives each at its most frequent size.
+   bound and the launch floor (the probe's device time). K5/K6 at every
+   size a flush launched them (and at 1 element, for the latency of one
+   product), in turns with the same chain as a loop of K3/K4 launches:
+   device time and wall time a chain. The kernels line gives each at its
+   most frequent size.
 
 Prints the whole report as one ``[report]`` JSON line, then one JSON line
 of kernel records, the card's name and power limit, and last
@@ -74,13 +81,14 @@ sys.path.insert(0, str(ROOT))
 from consensus_specs_tpu_torch import harness, probe  # noqa: E402
 from consensus_specs_tpu_torch.crypto import bls  # noqa: E402
 from consensus_specs_tpu_torch.crypto.bls import ciphersuite  # noqa: E402
-from consensus_specs_tpu_torch.ops import bls_torch, fq, fq_cuda, fq_plain  # noqa: E402
+from consensus_specs_tpu_torch.ops import bls_torch, fq, fq_cuda, fq_plain, tower  # noqa: E402
 from consensus_specs_tpu_torch.ops import sha256 as dev  # noqa: E402
 from consensus_specs_tpu_torch.ops import sha256_cuda, sha256_plain  # noqa: E402
 from consensus_specs_tpu_torch.specs import build_spec  # noqa: E402
 
 SOURCE = "consensus_specs_tpu_torch/ops/csrc/sha256.cu"
 FQ_SOURCE = "consensus_specs_tpu_torch/ops/csrc/fq.cu"
+FQ_POW_SOURCE = "consensus_specs_tpu_torch/ops/csrc/fq_pow.cu"
 PROBE_SOURCE = "consensus_specs_tpu_torch/ops/csrc/probe.cu"
 # 32-bit integer instructions per message, counted from the round
 # structure of csrc/sha256.cu: a round is 6 funnel-shift rotates, 4 LOP3
@@ -106,10 +114,17 @@ K4_INT_OPS = 24 + 36 + 2 * 40 + 64
 FQ_BYTES = 3 * 4 * 32  # two (32,) int32 operands read, one written
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 INT32_LANES_PER_SM = 64  # Hopper SM: 64 INT32 results per clock
-# K3 + K4 launches of one flush of a 128-attestation mainnet block at 2^19
-# validators, as the one-thread kernels' run counted them: every call site
-# is the same, so the lane-group kernels must be launched as often
-FLUSH_LAUNCHES = 32419
+# Launches of one flush of a 128-attestation mainnet block at 2^19
+# validators. Before the pow chains had their kernels a flush made 10,047
+# K3 and 22,372 K4 launches (32,419). Its 10 chains ran inside them: 6
+# Fq chains (2 fq_pow_bits, 4 fq.inv) of 1,217 + 2,440 = 3,657 K3 launches
+# (one a bit and one a set bit: 379 + 229 for (p+1)/4, 380 + 229 for
+# (p-1)/2, 381 + 229 for p-2), and 4 Fq2 chains of 2,432 K3 and 4,864 K4
+# launches (one K3 and two K4 a squaring and a product: 2 x (379 + 228) +
+# 2 x (380 + 229) = 2,432). Each chain is now one K5 or K6 launch, so
+# K3 10,047 - 3,657 - 2,432 = 3,958, K4 22,372 - 4,864 = 17,508, in all
+# 21,466 K3/K4 launches and 10 chain launches.
+FLUSH_LAUNCHES = {"fq_mul": 3958, "fq_addsub": 17508, "fq_pow": 6, "fq2_pow": 4}
 DEFAULT_VALIDATORS = 1 << 19
 
 P = fq.P_INT
@@ -203,10 +218,11 @@ def require(cond: bool, what: str) -> None:
 def phase_build(report: dict) -> None:
     """One nvcc per source, all started together."""
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=3) as pool:
-        libs = list(pool.map(lambda build: build(verbose=True), (sha256_cuda.build, fq_cuda.build, probe.build)))
+    builds = (sha256_cuda.build, fq_cuda.build, fq_cuda.build_pow, probe.build)
+    with ThreadPoolExecutor(max_workers=len(builds)) as pool:
+        libs = list(pool.map(lambda build: build(verbose=True), builds))
     report["build_s"] = time.perf_counter() - t0
-    print(f"[build] {SOURCE}, {FQ_SOURCE}, {PROBE_SOURCE} in {report['build_s']:.1f}s: "
+    print(f"[build] {SOURCE}, {FQ_SOURCE}, {FQ_POW_SOURCE}, {PROBE_SOURCE} in {report['build_s']:.1f}s: "
           f"{[lib.name for lib in libs]}", flush=True)
 
 
@@ -333,6 +349,174 @@ def phase_fq_timing(report: dict, card: "Card", seed: int, hist: dict) -> None:
                 "bound_by": by_size[n]["bound_by"], "floor_ms": floor, "library_ms": None, "by_size": by_size,
             }
     report["fq_timing"] = out
+
+
+POW_SIZES = [260, 16385]  # a flush's 2 x 130 rows, a decode's 16,385 keys
+# K5/K6: the wrapper, the plain version, the JAX functions replaced, and
+# the exponent each is timed with (its callers' longest: the time barely
+# depends on which)
+POW = {
+    "fq_pow": {"degree": 1, "kernel": fq_cuda.fq_pow, "plain": fq_plain.pow_bits, "timed": "inv",
+               "replaces": "consensus_specs_tpu/ops/curve_jax.py:282",
+               "also_replaces": "consensus_specs_tpu/ops/fq.py:201"},
+    "fq2_pow": {"degree": 2, "kernel": fq_cuda.fq2_pow, "plain": fq_plain.fq2_pow_bits, "timed": "legendre",
+                "replaces": "consensus_specs_tpu/ops/curve_jax.py:294"},
+}
+
+
+def chain_work(name: str, e: int) -> tuple:
+    """(Montgomery products, field sums, products one after another) of one
+    element's chain: a square at every bit and a product at every set bit;
+    in Fq2 a square is 2 products and 3 sums, a product (Karatsuba) 3 and 5,
+    and the products of one square or one product do not wait on each
+    other, so the chain is as deep as in Fq."""
+    bits, ones = e.bit_length(), bin(e).count("1")
+    if name == "fq_pow":
+        return bits + ones, 0, bits + ones
+    return 2 * bits + 3 * ones, 3 * bits + 5 * ones, bits + ones
+
+
+def loop_chain(name: str, a: torch.Tensor, bits: list) -> torch.Tensor:
+    """The chain as the main path ran it before K5/K6: one K3 launch a
+    product (Fq), or the tower's squaring and product on K3/K4 (Fq2)."""
+    if name == "fq_pow":
+        r = fq.const(fq.ONE_MONT, a.device).expand(a.shape)
+        for bit in bits:
+            r = fq_cuda.fq_mul(r, r)
+            if bit:
+                r = fq_cuda.fq_mul(r, a)
+        return r
+    r = fq.const(tower.ONE2, a.device).expand(a.shape)
+    for bit in bits:
+        r = tower.fq2_square(r)
+        if bit:
+            r = tower.fq2_mul(r, a)
+    return r
+
+
+def pow_operand(n: int, degree: int, rng, edges: bool = True) -> tuple:
+    """n elements of Fq (degree 1) or Fq2 on the card, random, with the
+    edge values as the last rows where n has room; and their integers."""
+    ints = fq_plain.pow_values(n, degree, rng, edges)
+    return torch.from_numpy(fq.to_limbs(ints)).cuda(), ints
+
+
+def phase_pow_kernels(report: dict, seed: int, sizes: dict, label: str) -> None:
+    """K5/K6 bit-exact against their plain versions on the card, for each
+    of the four exponents, at each of ``sizes[name]`` elements, random and
+    edge values; against Python integers on a sample and every edge row.
+    ``report["fq_checks"]`` keeps each kernel's largest error."""
+    rng = np.random.default_rng([seed, 5])
+    errs = report.setdefault("fq_checks", {})
+    for name, k in POW.items():
+        degree = k["degree"]
+        for n in sizes[name]:
+            a, ints = pow_operand(n, degree, rng)
+            edges = len(fq_plain.POW_EDGES[degree]) if n >= 16 else 0
+            sample = sorted(set(range(0, n, max(1, n // 64))) | set(range(n - edges, n)))
+            for exp_name, e in fq_plain.EXPONENTS.items():
+                bits = fq_plain.bits_msb(e)
+                got = k["kernel"](a, bits)
+                torch.cuda.synchronize()
+                err = max_abs_err(got, k["plain"](a, bits))
+                require(err == 0, f"{name} {exp_name} disagrees with its plain version at {n} (max abs err {err})")
+                values = fq.from_limbs(got[sample].cpu().numpy())
+                values = list(values) if degree == 1 else [tuple(v) for v in values]
+                require(values == [fq_plain.pow_int(ints[i], e, degree) for i in sample],
+                        f"{name} {exp_name} disagrees with Python integers at {n}")
+                errs[name] = max(errs.get(name, 0), err)
+    report.setdefault("pow_checked_sizes", []).append(sizes)
+    print(f"[kernels] K5/K6 ({label}): bit-exact at {sizes} elements for exponents {list(fq_plain.EXPONENTS)}, "
+          f"edge values where n has room, Python integers on a sample: "
+          f"{ {k: errs[k] for k in POW} }", flush=True)
+
+
+def chain_turns(name: str, a: torch.Tensor, bits: list, reps: int, windows: int = 3) -> dict:
+    """One chain as K5/K6 and as the loop of K3/K4 launches it replaced,
+    in turns: device time from one profiler window (the loop's: every
+    kernel it launched, the tower's stacking copies included), and wall
+    time a chain on the host's clock, from its call to its result, in a
+    second round of turns without the profiler. CUPTI may drop events: a
+    window that saw fewer than half of the K5/K6 launches (as
+    ``device_ms_turns`` asks) or 90% of the loop's K3/K4 launches is
+    measured again, up to ``windows`` times."""
+    new = lambda: POW[name]["kernel"](a, bits)  # noqa: E731
+    old = lambda: loop_chain(name, a, bits)  # noqa: E731
+    before = sum(fq_cuda.launches[k] for k in ("fq_mul", "fq_addsub"))
+    old()
+    per_loop = sum(fq_cuda.launches[k] for k in ("fq_mul", "fq_addsub")) - before
+    new()
+    torch.cuda.synchronize()
+    symbol = f"{name}_kernel"
+    for _ in range(windows):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for r in range(reps):
+                for fn in (new, old) if r % 2 == 0 else (old, new):
+                    fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        ours = [e for e in events if symbol in e.key]
+        base = [e for e in events if "fq_mul_lanes" in e.key or "fq_addsub_lanes" in e.key]
+        seen, seen_base = sum(e.count for e in ours), sum(e.count for e in base)
+        if seen >= max(1, reps // 2) and seen_base >= 0.9 * reps * per_loop:
+            break
+        print(f"[profiler] saw {seen} of {reps} {name} launches, {seen_base} of {reps * per_loop} K3/K4", flush=True)
+    else:
+        raise AssertionError(f"the profiler saw too few launches in {windows} windows")
+    ours_us = sum(e.self_device_time_total for e in ours)
+    ms = ours_us / seen / 1e3
+    scale = reps * per_loop / seen_base  # the loop's launches made / seen: the profiler may drop some
+    loop_k34_ms = sum(e.self_device_time_total for e in base) / 1e3 / reps * scale
+    loop_ms = (sum(e.self_device_time_total for e in events) - ours_us) / 1e3 / reps * scale
+    wall = {"new": 0.0, "old": 0.0}
+    for r in range(reps):
+        for key, fn in (("new", new), ("old", old)) if r % 2 == 0 else (("old", old), ("new", new)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall[key] += (time.perf_counter() - t0) * 1e3 / reps
+    return {"ms": ms, "loop_device_ms": loop_ms, "loop_k3k4_device_ms": loop_k34_ms, "loop_launches": per_loop,
+            "wall_ms": wall["new"], "loop_wall_ms": wall["old"]}
+
+
+def phase_pow_timing(report: dict, card: "Card", seed: int, hist: dict) -> None:
+    """K5/K6 at 1 element and at every size a flush launched them (``hist``:
+    elements -> launches), each in turns with the loop of K3/K4 launches it
+    replaced, beside its bounds: operations (the chain's products x
+    K3_INT_OPS + sums x K4_INT_OPS, times n), bytes (each element read and
+    written once), the launch floor, and the latency floor (the chain's
+    depth in products x one product's latency, read from K5 at 1 element).
+    Each kernel's record is taken at its most frequent size."""
+    rng = np.random.default_rng([seed, 7])
+    floor = report["probe"]["ms"]
+    out, product_ms = {}, None
+    for name, k in POW.items():
+        e = fq_plain.EXPONENTS[k["timed"]]
+        bits = fq_plain.bits_msb(e)
+        products, sums, depth = chain_work(name, e)
+        top = sorted(hist[name], key=lambda n: (-hist[name][n], n))
+        by_size = {}
+        for n in dict.fromkeys([1] + sorted(hist[name])):
+            a, _ = pow_operand(n, k["degree"], rng, edges=False)
+            t = chain_turns(name, a, bits, reps=4 if n > 1 else 6)
+            if name == "fq_pow" and n == 1:
+                product_ms = t["ms"] / depth
+            bound, bound_by = card.bound_ms(n, products * K3_INT_OPS + sums * K4_INT_OPS, 2 * 128 * k["degree"] * n)
+            by_size[n] = {**t, "bound_ms": bound, "bound_by": bound_by, "latency_floor_ms": depth * product_ms,
+                          "flush_launches": hist[name].get(n, 0)}
+            print(f"[pow_timing] {name} at {n} elements ({hist[name].get(n, 0)} launches a flush, {k['timed']}): "
+                  f"{t['ms'] * 1e3:.1f} us on the card, {t['wall_ms']:.3f} ms a chain; the loop of "
+                  f"{t['loop_launches']} K3/K4 launches {t['loop_device_ms'] * 1e3:.1f} us on the card "
+                  f"({t['loop_k3k4_device_ms'] * 1e3:.1f} in K3/K4), {t['loop_wall_ms']:.3f} ms a chain; bound "
+                  f"{bound * 1e3:.2f} us ({bound_by}), latency floor {depth * product_ms * 1e3:.1f} us "
+                  f"({products} products, {depth} deep), launch floor {floor * 1e3:.3f} us", flush=True)
+        n = top[0]
+        a, _ = pow_operand(n, k["degree"], rng, edges=False)
+        out[name] = {"elements": n, "exponent": k["timed"], "plain_ms": cuda_ms(lambda: k["plain"](a, bits), reps=2),
+                     "library_ms": None, "floor_ms": floor, "by_size": by_size,
+                     **{key: by_size[n][key] for key in ("ms", "bound_ms", "bound_by", "latency_floor_ms")}}
+    report["pow_timing"] = out
 
 
 def phase_kernels(report: dict, card: Card, seed: int, k2_rows: int) -> None:
@@ -514,7 +698,7 @@ class TimedVerifier(bls.DeferredVerifier):
 def bls_phase(report: dict, spec, states: tuple, slots: int, flush_launches) -> tuple:
     """Signed blocks of 128 aggregates, one deferred flush each on the card.
     The first block's flush is traced; checks/s is read from the others.
-    Each flush must make ``flush_launches`` K3 + K4 launches (None: not
+    Each flush must make ``flush_launches`` (kernel -> launches; None: not
     checked). Returns the main path's counts and the launch-size histogram
     of the first untraced flush (kernel -> elements -> launches)."""
     dev_state, host_state = states
@@ -565,9 +749,8 @@ def bls_phase(report: dict, spec, states: tuple, slots: int, flush_launches) -> 
                           if c != before_sizes[k].get(n, 0)} for k in fq_cuda.KERNELS},
             "oracle_rows": len(sampled), "oracle_s": oracle_s,
         }
-        made = sum(rec["launches"].values())
-        require(flush_launches is None or made == flush_launches,
-                f"slot {rec['slot']}: the flush made {made} K3 + K4 launches, not {flush_launches}")
+        require(flush_launches is None or rec["launches"] == flush_launches,
+                f"slot {rec['slot']}: the flush made {rec['launches']} launches, not {flush_launches}")
         if i == 0:
             rec["profiled"] = verifier.profiled
             print(f"[bls] traced flush: {verifier.profiled['wall_s']:.3f}s wall, card busy "
@@ -578,7 +761,7 @@ def bls_phase(report: dict, spec, states: tuple, slots: int, flush_launches) -> 
         print(f"[bls] slot {rec['slot']}: {checks} checks all true, block {block_s:.3f}s, flush {flush_s:.3f}s "
               f"({rec['checks_per_s']:.1f} checks/s{', traced' if rec['traced'] else ''}; stages sum to "
               f"{rec['stage_sum_s']:.3f}s), stages "
-              f"{ {k: round(v, 3) for k, v in rec['stage_s'].items()} }, K3/K4 launches {rec['launches']}, "
+              f"{ {k: round(v, 3) for k, v in rec['stage_s'].items()} }, K3-K6 launches {rec['launches']}, "
               f"{rec['pubkeys_decoded']} pubkeys decoded, oracle agrees on {len(sampled)} rows", flush=True)
     counts = dev.counters()
     launches = {k: sum(r["launches"][k] for r in per_block) for k in fq_cuda.KERNELS}
@@ -595,7 +778,7 @@ def bls_phase(report: dict, spec, states: tuple, slots: int, flush_launches) -> 
         "checks_per_s": sum(r["checks"] for r in timed) / sum(r["flush_s"] for r in timed),
     }
     print(f"[bls] {slots} signed blocks of {n_att[0]} attestations verified on the card; "
-          f"{report['bls']['checks_per_s']:.2f} checks/s over the untraced flushes; K3/K4 launches {launches}; "
+          f"{report['bls']['checks_per_s']:.2f} checks/s over the untraced flushes; K3-K6 launches {launches}; "
           f"card idle {report['bls']['flush_device_idle_share']:.4%} of the traced flush", flush=True)
     return {"launches": {**counts["launches"], **launches}}, hist
 
@@ -651,6 +834,53 @@ def tampered_phase(report: dict, spec, states: tuple, seed: int) -> None:
           f"host oracle agrees, replay raised {raised} ({seconds:.3f}s)", flush=True)
 
 
+def kernel_records(report: dict, main_counts: tuple) -> list:
+    """The kernels line: each kernel of the main path with its launches
+    there (summed over ``main_counts``, each a phase's ``{"launches": ...}``),
+    then the one-thread K3/K4 kept for measurement (launched nowhere on it)."""
+    records = []
+    for name, replaces, source in (
+        ("sha256_blocks", "consensus_specs_tpu/ops/sha256_pallas.py:45", SOURCE),
+        ("sha256_raw_blocks", "consensus_specs_tpu/ops/sha256.py:122", SOURCE),
+        ("fq_mul", "consensus_specs_tpu/ops/fq.py:175", FQ_SOURCE),
+        ("fq_addsub", "consensus_specs_tpu/ops/fq.py:115", FQ_SOURCE),
+        ("fq_pow", POW["fq_pow"]["replaces"], FQ_POW_SOURCE),
+        ("fq2_pow", POW["fq2_pow"]["replaces"], FQ_POW_SOURCE),
+        ("add_one", "tools/pallas_probe.py:46", PROBE_SOURCE),
+    ):
+        if name == "add_one":
+            k, launches = report["probe"], report["probe"]["launches"]
+        else:
+            if name.startswith("fq"):
+                timing = report["pow_timing" if name in POW else "fq_timing"][name]
+                k = {**timing, "max_abs_err": report["fq_checks"][name]}
+            else:
+                k = report["kernels"][name]
+            launches = sum(c["launches"].get(name, 0) for c in main_counts)
+        require(launches > 0, f"{name} was not launched on the main path")
+        rec = {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+            "library_ms": k["library_ms"], **({"elements": k["elements"]} if name.startswith("fq") else {}),
+        }
+        if name in POW:  # K5/K6: the chain's latency floor; K5 also replaces fq.py's inv
+            rec["latency_floor_ms"] = k["latency_floor_ms"]
+            rec.update({"also_replaces": POW[name]["also_replaces"]} if "also_replaces" in POW[name] else {})
+        records.append(rec)
+    for name, k in report["fq_timing"].items():
+        if k["measurement_only"]:
+            replaces = "consensus_specs_tpu/ops/fq.py:175" if name.startswith("fq_mul") else \
+                "consensus_specs_tpu/ops/fq.py:115"
+            records.append({
+                "name": name, "route": "cuda", "source": FQ_SOURCE, "replaces": replaces,
+                "launches": 0, "measurement_only": True, "elements": k["elements"],
+                "max_abs_err": report["fq_checks"][name], "ms": k["ms"], "plain_ms": k["plain_ms"],
+                "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": None,
+            })
+    return records
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -671,6 +901,7 @@ def main() -> int:
     k2_rows = spec.SHUFFLE_ROUND_COUNT * (1 + n_blocks)  # the shuffle's one sha256_many_small call
     phase_kernels(report, card, args.seed, k2_rows)
     phase_fq_kernels(report, args.seed, [128 * 2 * 18, 16384], "an Fq12 product of 128 Miller loops, a decode")
+    phase_pow_kernels(report, args.seed, {name: POW_SIZES for name in POW}, "a flush's 260, a decode's 16,385")
 
     print("[calibrate]", json.dumps(dev.use_device_hasher(calibrate=True)), flush=True)
     dev.use_host_hasher()
@@ -697,42 +928,12 @@ def main() -> int:
     dev.use_host_hasher()
     phase_fq_kernels(report, args.seed, sorted(set(hist["fq_mul"]) | set(hist["fq_addsub"])),
                      "every size a flush launched")
+    phase_pow_kernels(report, args.seed, {name: sorted(hist[name]) for name in POW}, "every size a flush launched")
     phase_fq_timing(report, card, args.seed, hist)
+    phase_pow_timing(report, card, args.seed, hist)
     report["total_s"] = time.perf_counter() - t_start
 
-    records = []
-    for name, replaces, source in (
-        ("sha256_blocks", "consensus_specs_tpu/ops/sha256_pallas.py:45", SOURCE),
-        ("sha256_raw_blocks", "consensus_specs_tpu/ops/sha256.py:122", SOURCE),
-        ("fq_mul", "consensus_specs_tpu/ops/fq.py:175", FQ_SOURCE),
-        ("fq_addsub", "consensus_specs_tpu/ops/fq.py:115", FQ_SOURCE),
-        ("add_one", "tools/pallas_probe.py:46", PROBE_SOURCE),
-    ):
-        if name == "add_one":
-            k, launches = report["probe"], report["probe"]["launches"]
-        else:
-            k = ({**report["fq_timing"][name], "max_abs_err": report["fq_checks"][name]}
-                 if name.startswith("fq_") else report["kernels"][name])
-            launches = sum(c["launches"].get(name, 0) for c in (root_counts, transition_counts, bls_counts))
-        require(launches > 0, f"{name} was not launched on the main path")
-        records.append({
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches, "max_abs_err": k["max_abs_err"], "ms": k["ms"],
-            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-            "library_ms": k["library_ms"], **({"elements": k["elements"]} if name.startswith("fq_") else {}),
-        })
-    # the one-thread kernels of K3/K4, timed beside the main path's kernels
-    # and launched nowhere on it
-    for name, k in report["fq_timing"].items():
-        if k["measurement_only"]:
-            replaces = "consensus_specs_tpu/ops/fq.py:175" if name.startswith("fq_mul") else \
-                "consensus_specs_tpu/ops/fq.py:115"
-            records.append({
-                "name": name, "route": "cuda", "source": FQ_SOURCE, "replaces": replaces,
-                "launches": 0, "measurement_only": True, "elements": k["elements"],
-                "max_abs_err": report["fq_checks"][name], "ms": k["ms"], "plain_ms": k["plain_ms"],
-                "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": None,
-            })
+    records = kernel_records(report, (root_counts, transition_counts, bls_counts))
     print("[report]", json.dumps(report, default=str))
     print(json.dumps({
         "kernels": records,

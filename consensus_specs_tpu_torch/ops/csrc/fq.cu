@@ -68,29 +68,8 @@ constexpr int kMulLanes = 4;
 template <int G>
 using Digits = fq::lanes::Lanes<uint32_t, G>;
 
-// lane l's digits D l .. D l + D - 1 of the element at src: its D / 2 int4s
-template <int G>
-__device__ __forceinline__ void load_digits(Digits<G> d[fq::lanes::kDigits / G], const int32_t* src, int l) {
-  constexpr int D = fq::lanes::kDigits / G;
-  const int4* v = reinterpret_cast<const int4*>(src + 2 * D * l);
-#pragma unroll
-  for (int q = 0; q < D / 2; ++q) {
-    const int4 w = v[q];
-    d[2 * q].v = (uint32_t)w.x | ((uint32_t)w.y << 12);
-    d[2 * q + 1].v = (uint32_t)w.z | ((uint32_t)w.w << 12);
-  }
-}
-
-template <int G>
-__device__ __forceinline__ void store_digits(int32_t* dst, const Digits<G> d[fq::lanes::kDigits / G], int l) {
-  constexpr int D = fq::lanes::kDigits / G;
-  int4* v = reinterpret_cast<int4*>(dst + 2 * D * l);
-#pragma unroll
-  for (int q = 0; q < D / 2; ++q) {
-    const uint32_t lo = d[2 * q].v, hi = d[2 * q + 1].v;
-    v[q] = make_int4((int)(lo & 0xfffu), (int)(lo >> 12), (int)(hi & 0xfffu), (int)(hi >> 12));
-  }
-}
+using fq::lanes::load_digits;
+using fq::lanes::store_digits;
 
 // Lanes past the last element still run the group code (every lane of a
 // warp takes part in its shuffles and ballots), on zeros, and store nothing.

@@ -1,7 +1,8 @@
 // BLS12-381 base-field arithmetic: the device functions of the K3 (fq_mul)
-// and K4 (fq_addsub) kernels of fq.cu, kept in a header so that later fused
-// kernels (the Miller loop, the final exponentiation, the pow chains of
-// fq_inv and fq2_sqrt) can build on the same code. Two forms:
+// and K4 (fq_addsub) kernels of fq.cu and of the pow chains K5 (fq_pow) and
+// K6 (fq2_pow) of fq_pow.cu, kept in a header so that later fused kernels
+// (the Miller loop, the final exponentiation) can build on the same code.
+// Two forms:
 //
 // - one thread per element (namespace fq): the kernels of the first port,
 //   kept for measurement and for fused kernels that hold a whole element
@@ -501,6 +502,126 @@ FQ_GD void mont_mul(Lanes<uint32_t, G> r[kDigits / G], const Lanes<uint32_t, G> 
   settle<G>(d);
   cond_sub_p<G>(r, d);
 }
+
+// Every function below writes its result only after its last read of an
+// operand, so r may alias a or b.
+
+// The exponent of a pow chain, public and the same for every thread: bit i
+// of the integer is bit i % 32 of words[i / 32]; bits is its length,
+// leading zeros included (each costs a squaring of 1).
+struct Exponent {
+  uint32_t words[kWords];
+  int bits;
+};
+
+// R mod p (1 in Montgomery form) in 24-bit digits
+#if defined(__CUDACC__)
+__constant__
+#else
+constexpr
+#endif
+    uint32_t kOneDigits[kDigits] = {0x02fffdu, 0x000000u, 0x027609u, 0xc40c00u, 0xf4000bu, 0x58baebu,
+                                    0x5753c7u, 0x5f4898u, 0x525745u, 0x585370u, 0x6d77ceu, 0xa256ecu,
+                                    0x071a97u, 0xe4935cu, 0xc3fa80u, 0x15f65eu};
+
+template <int G>
+FQ_GD void load_one(Lanes<uint32_t, G> r[kDigits / G]) {
+  constexpr int D = kDigits / G;
+  FQ_LANES(l, G) {
+#pragma unroll
+    for (int k = 0; k < D; ++k) r[k][l] = kOneDigits[D * l + k];
+  }
+}
+
+FQ_HD bool exponent_bit(const Exponent& e, int i) { return (e.words[i / 32] >> (i % 32)) & 1u; }
+
+// K5's body: r = a^e in Montgomery form, square-and-multiply over e's bits
+// from the most significant, the product with a only at a set bit. The
+// exponent is uniform, so the branch is too (the JAX package selected with
+// jnp.where; both give the canonical residue). 0 maps to 0.
+template <int G>
+FQ_GD void pow(Lanes<uint32_t, G> r[kDigits / G], const Lanes<uint32_t, G> a[kDigits / G], const Exponent& e) {
+  load_one<G>(r);
+  for (int i = e.bits - 1; i >= 0; --i) {
+    mont_mul<G>(r, r, r);
+    if (exponent_bit(e, i)) mont_mul<G>(r, r, a);
+  }
+}
+
+// Fq2 = Fq[u] / (u^2 + 1) on one group: x[0] + x[1] u, each half on the
+// same G lanes, the products run one after another.
+
+// (a0 + a1 u)^2 = (a0 + a1)(a0 - a1) + 2 a0 a1 u: 2 products, 3 sums
+template <int G>
+FQ_GD void fq2_square(Lanes<uint32_t, G> r[2][kDigits / G], const Lanes<uint32_t, G> a[2][kDigits / G]) {
+  constexpr int D = kDigits / G;
+  Lanes<uint32_t, G> s[D], d[D], t[D];
+  addsub<G>(s, a[0], a[1], 0);
+  addsub<G>(d, a[0], a[1], 1);
+  addsub<G>(t, a[0], a[0], 0);
+  mont_mul<G>(r[1], t, a[1]);
+  mont_mul<G>(r[0], s, d);
+}
+
+// Karatsuba: a0 b0 - a1 b1 + ((a0 + a1)(b0 + b1) - a0 b0 - a1 b1) u: 3
+// products, 5 sums
+template <int G>
+FQ_GD void fq2_mul(Lanes<uint32_t, G> r[2][kDigits / G], const Lanes<uint32_t, G> a[2][kDigits / G],
+                   const Lanes<uint32_t, G> b[2][kDigits / G]) {
+  constexpr int D = kDigits / G;
+  Lanes<uint32_t, G> t0[D], t1[D], sa[D], sb[D], t2[D];
+  mont_mul<G>(t0, a[0], b[0]);
+  mont_mul<G>(t1, a[1], b[1]);
+  addsub<G>(sa, a[0], a[1], 0);
+  addsub<G>(sb, b[0], b[1], 0);
+  mont_mul<G>(t2, sa, sb);
+  addsub<G>(r[0], t0, t1, 1);
+  addsub<G>(t2, t2, t0, 1);
+  addsub<G>(r[1], t2, t1, 1);
+}
+
+// K6's body: r = a^e in Fq2, the walk of pow from (1, 0)
+template <int G>
+FQ_GD void fq2_pow(Lanes<uint32_t, G> r[2][kDigits / G], const Lanes<uint32_t, G> a[2][kDigits / G],
+                   const Exponent& e) {
+  constexpr int D = kDigits / G;
+  load_one<G>(r[0]);
+  FQ_LANES(l, G) {
+#pragma unroll
+    for (int k = 0; k < D; ++k) r[1][k][l] = 0u;
+  }
+  for (int i = e.bits - 1; i >= 0; --i) {
+    fq2_square<G>(r, r);
+    if (exponent_bit(e, i)) fq2_mul<G>(r, r, a);
+  }
+}
+
+#if defined(__CUDACC__)
+// lane l's digits D l .. D l + D - 1 of the element at src (the tensor
+// layout's limbs 2 D l .. 2 D l + 2 D - 1): its D / 2 int4s
+template <int G>
+__device__ __forceinline__ void load_digits(Lanes<uint32_t, G> d[kDigits / G], const int32_t* src, int l) {
+  constexpr int D = kDigits / G;
+  const int4* v = reinterpret_cast<const int4*>(src + 2 * D * l);
+#pragma unroll
+  for (int q = 0; q < D / 2; ++q) {
+    const int4 w = v[q];
+    d[2 * q].v = (uint32_t)w.x | ((uint32_t)w.y << 12);
+    d[2 * q + 1].v = (uint32_t)w.z | ((uint32_t)w.w << 12);
+  }
+}
+
+template <int G>
+__device__ __forceinline__ void store_digits(int32_t* dst, const Lanes<uint32_t, G> d[kDigits / G], int l) {
+  constexpr int D = kDigits / G;
+  int4* v = reinterpret_cast<int4*>(dst + 2 * D * l);
+#pragma unroll
+  for (int q = 0; q < D / 2; ++q) {
+    const uint32_t lo = d[2 * q].v, hi = d[2 * q + 1].v;
+    v[q] = make_int4((int)(lo & 0xfffu), (int)(lo >> 12), (int)(hi & 0xfffu), (int)(hi >> 12));
+  }
+}
+#endif
 
 }  // namespace lanes
 

@@ -241,21 +241,11 @@ _FQ2_SQRT_A1_BITS = _bits_msb((P_INT - 3) // 4)
 
 def fq_pow_bits(a, bits):
     """a^e over base-field lanes, e as static MSB-first bits."""
-    r = FQ.one(a.shape[:-1], a.device)
-    for bit in bits:
-        r = fq.mul(r, r)
-        if bit:
-            r = fq.mul(r, a)
-    return r
+    return fq.pow_bits(a, bits)
 
 
 def fq2_pow_bits(a, bits):
-    r = FQ2.one(a.shape[:-2], a.device)
-    for bit in bits:
-        r = tower.fq2_square(r)
-        if bit:
-            r = tower.fq2_mul(r, a)
-    return r
+    return tower.fq2_pow_bits(a, bits)
 
 
 def fq_sqrt(a):

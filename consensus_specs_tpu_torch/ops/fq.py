@@ -6,15 +6,19 @@ little-endian, in Montgomery form with radix R = 2^384; every function
 broadcasts over the leading dimensions and returns canonical limbs, so
 limb tensors compare directly with the JAX package's arrays.
 
-The multiply and the add/sub/neg are the two kernels of ``csrc/fq.cu``:
+The multiply and the add/sub/neg are the two kernels of ``csrc/fq.cu``,
+the static-exponent powers the two kernels of ``csrc/fq_pow.cu``:
 
 - ``mul`` (K3 ``fq_mul``): the Montgomery product a b / R mod p;
-- ``add``/``sub``/``neg`` (K4 ``fq_addsub``).
+- ``add``/``sub``/``neg`` (K4 ``fq_addsub``);
+- ``pow_bits`` (K5 ``fq_pow``): a^e for a public exponent, one launch a
+  chain; ``inv`` is a^(p-2);
+- ``fq2_pow_bits`` (K6 ``fq2_pow``): the same in Fq2, for the tower.
 
 On a CPU tensor each computes with its plain PyTorch version
 (``fq_plain``); on a CUDA tensor it launches the kernel or raises. Every
 op above this module (the tower, the curve, hash-to-curve, the pairing)
-stands on these four.
+stands on these.
 """
 from __future__ import annotations
 
@@ -126,18 +130,34 @@ def from_mont(a: torch.Tensor) -> torch.Tensor:
     return mul(a, const(ONE_PLAIN, a.device))
 
 
+def pow_bits(a: torch.Tensor, bits) -> torch.Tensor:
+    """a^e in Montgomery form, e given as its bits from the most significant
+    (a static list): square-and-multiply over the bits in one call. Maps 0
+    to 0."""
+    if a.device.type == "cpu":
+        return fq_plain.pow_bits(a, bits)
+    if a.device.type == "cuda":
+        return fq_cuda.fq_pow(a, bits)
+    raise ValueError(f"fq: no kernel for device {a.device}")
+
+
+def fq2_pow_bits(a: torch.Tensor, bits) -> torch.Tensor:
+    """``pow_bits`` in Fq2: ``a`` is ``(..., 2, 32)``, a0 + a1 u with
+    u^2 = -1."""
+    if a.device.type == "cpu":
+        return fq_plain.fq2_pow_bits(a, bits)
+    if a.device.type == "cuda":
+        return fq_cuda.fq2_pow(a, bits)
+    raise ValueError(f"fq: no kernel for device {a.device}")
+
+
 _P_MINUS_2_BITS = [(P_INT - 2) >> i & 1 for i in range((P_INT - 2).bit_length() - 1, -1, -1)]
 
 
 def inv(a: torch.Tensor) -> torch.Tensor:
-    """a^-1 in Montgomery form by Fermat, a^(p-2), square-and-multiply over
-    the 381 exponent bits, MSB first. Maps 0 to 0."""
-    result = const(ONE_MONT, a.device).expand(a.shape)
-    for bit in _P_MINUS_2_BITS:
-        result = square(result)
-        if bit:
-            result = mul(result, a)
-    return result
+    """a^-1 in Montgomery form by Fermat, a^(p-2) over the 381 exponent
+    bits. Maps 0 to 0."""
+    return pow_bits(a, _P_MINUS_2_BITS)
 
 
 def geq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

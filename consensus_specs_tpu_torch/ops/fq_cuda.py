@@ -1,8 +1,10 @@
-"""Bind and launch the hand-written base-field kernels (csrc/fq.cu): K3
-``fq_mul`` and K4 ``fq_addsub``, each a lane-group kernel (a group of lanes
-of a warp per element).
+"""Bind and launch the hand-written base-field kernels, each a lane-group
+kernel (a group of lanes of a warp per element): K3 ``fq_mul`` and K4
+``fq_addsub`` (csrc/fq.cu), and the static-exponent pow chains K5
+``fq_pow`` (Fq) and K6 ``fq2_pow`` (Fq2), one launch a chain
+(csrc/fq_pow.cu).
 
-The source (with its device header ``csrc/fq.cuh``) is built at first
+Each source (with its device header ``csrc/fq.cuh``) is built at first
 launch by ``cuda_build``; nothing is built when the module is imported.
 
 Each wrapper takes CUDA int32 tensors of canonical limbs ``(..., 32)``,
@@ -10,7 +12,10 @@ broadcasts them, launches on PyTorch's current stream, raises if the
 launch is refused, and counts the launch in ``launches`` and its element
 count in ``sizes``. An operand that is one element for the whole batch (a
 curve or tower constant) is read with stride 0, not materialised. There is
-no fallback: a build or launch failure raises.
+no fallback: a build or launch failure raises. K5/K6 take one operand of
+any shape ``(..., 32)`` or ``(..., 2, 32)`` and the exponent as its bits
+from the most significant; each bit list is packed into words once and
+kept.
 
 For measurement only, ``fq_mul_thread``/``fq_addsub_thread`` launch the
 one-thread kernels of the first port; nothing on the main path calls
@@ -27,15 +32,18 @@ import torch
 from . import cuda_build
 
 N_LIMBS = 32
-KERNELS = ("fq_mul", "fq_addsub")  # the main path's
+KERNELS = ("fq_mul", "fq_addsub", "fq_pow", "fq2_pow")  # the main path's
 MEASURED = ("fq_mul_thread", "fq_addsub_thread")
 launches = dict.fromkeys(KERNELS + MEASURED, 0)
 sizes: dict = {k: {} for k in KERNELS + MEASURED}  # elements a launch -> launches
 
 _lib = None
+_pow_lib = None
 _lock = threading.Lock()
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
+_WORDS = ctypes.c_uint32 * 12  # an exponent of at most 384 bits
+_exponents: dict = {}  # bits (a tuple) -> (words, length)
 
 
 def reset_counters() -> None:
@@ -49,6 +57,11 @@ def build(verbose: bool = False) -> Path:
     return cuda_build.build("fq.cu", ("fq.cuh",), verbose=verbose)
 
 
+def build_pow(verbose: bool = False) -> Path:
+    """Compile csrc/fq_pow.cu unless it is built already; returns the library."""
+    return cuda_build.build("fq_pow.cu", ("fq.cuh",), verbose=verbose)
+
+
 def _load():
     global _lib
     with _lock:
@@ -60,6 +73,16 @@ def _load():
                 "fq_addsub_thread_launch": [_P, _I64, _P, _I64, _P, _I64, ctypes.c_int, _P],
             }, "fq_error_string")
     return _lib
+
+
+def _load_pow():
+    global _pow_lib
+    with _lock:
+        if _pow_lib is None:
+            sig = [_P, _P, _I64, ctypes.POINTER(ctypes.c_uint32), ctypes.c_int, _P]
+            _pow_lib = cuda_build.load("fq_pow.cu", ("fq.cuh",), {"fq_pow_launch": sig, "fq2_pow_launch": sig},
+                                       "fq_pow_error_string")
+    return _pow_lib
 
 
 def _broadcast_shape(a: torch.Size, b: torch.Size) -> tuple:
@@ -126,6 +149,58 @@ def fq_addsub(a: torch.Tensor, b: torch.Tensor, op: int) -> torch.Tensor:
     """K4: (a + b), (a - b) or (-b) mod p for op 0, 1, 2 (``fq_plain.OP_*``)."""
     _check_op("fq_addsub", op)
     return _launch("fq_addsub", a, b, op)
+
+
+def _exponent(bits) -> tuple:
+    """MSB-first bits -> (12 little-endian 32-bit words, bit length), made
+    once for each bit list."""
+    key = tuple(bits)
+    hit = _exponents.get(key)
+    if hit is None:
+        if len(key) > 384 or any(b not in (0, 1) for b in key):
+            raise ValueError(f"pow: expected at most 384 bits of 0 or 1, got {len(key)}")
+        e = 0
+        for b in key:
+            e = 2 * e + int(b)
+        hit = _exponents[key] = (_WORDS(*((e >> (32 * j)) & 0xFFFFFFFF for j in range(12))), len(key))
+    return hit
+
+
+def _pow(name: str, a: torch.Tensor, bits, degree: int) -> torch.Tensor:
+    tail = (N_LIMBS,) if degree == 1 else (2, N_LIMBS)
+    if a.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got one on {a.device}")
+    if a.dtype != torch.int32 or tuple(a.shape[-degree:]) != tail:
+        raise ValueError(f"{name}: expected int32 (..., {', '.join(map(str, tail))}), "
+                         f"got {a.dtype} {tuple(a.shape)}")
+    words, length = _exponent(bits)
+    x = a.contiguous()
+    if x.data_ptr() % 16:
+        x = x.clone()
+    out = torch.empty(a.shape, dtype=torch.int32, device=x.device)
+    n = out.numel() // (degree * N_LIMBS)
+    if n == 0:
+        return out
+    lib = _load_pow()
+    fn = getattr(lib, f"{name}_launch")
+    with torch.cuda.device(x.device):
+        rc = fn(x.data_ptr(), out.data_ptr(), n, words, length, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: {lib.fq_pow_error_string(rc).decode()}")
+    launches[name] += 1
+    sizes[name][n] = sizes[name].get(n, 0) + 1
+    return out
+
+
+def fq_pow(a: torch.Tensor, exp_bits) -> torch.Tensor:
+    """K5: a^e in Fq (Montgomery form), e as its bits from the most
+    significant, one launch for the chain; 0 maps to 0."""
+    return _pow("fq_pow", a, exp_bits, 1)
+
+
+def fq2_pow(a: torch.Tensor, exp_bits) -> torch.Tensor:
+    """K6: a^e in Fq2 (``(..., 2, 32)``, u^2 = -1), one launch for the chain."""
+    return _pow("fq2_pow", a, exp_bits, 2)
 
 
 def _check_op(name: str, op: int) -> None:

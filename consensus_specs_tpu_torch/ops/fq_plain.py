@@ -1,11 +1,12 @@
-"""Plain PyTorch versions of the base-field kernels K3 (``fq_mul``) and K4
-(``fq_addsub``).
+"""Plain PyTorch versions of the base-field kernels K3 (``fq_mul``), K4
+(``fq_addsub``), K5 (``fq_pow``) and K6 (``fq2_pow``).
 
-They compute what ``csrc/fq.cu`` computes, on the same layout: BLS12-381
-base-field elements as ``(..., 32)`` int32 tensors of canonical 12-bit
-limbs (little-endian), Montgomery radix R = 2^384, inputs and outputs
-below p. Every result is the canonical residue, so the limbs are equal bit
-for bit to the JAX package's ``ops/fq.py`` and to the kernels.
+They compute what ``csrc/fq.cu`` and ``csrc/fq_pow.cu`` compute, on the
+same layout: BLS12-381 base-field elements as ``(..., 32)`` int32 tensors
+of canonical 12-bit limbs (little-endian; an Fq2 element is ``(..., 2,
+32)``), Montgomery radix R = 2^384, inputs and outputs below p. Every
+result is the canonical residue, so the limbs are equal bit for bit to
+the JAX package's ``ops/fq.py`` and to the kernels.
 
 They are the CPU path of the field wrappers and the yardstick the kernels
 are held against on the card. They are written for few tensor operations
@@ -56,6 +57,7 @@ def _consts(device: torch.device) -> dict:
         p_mat[i, i : i + N_LIMBS] = p
     return {
         "p": torch.tensor(p, dtype=torch.int32, device=device),
+        "one": torch.tensor(limbs_of(R_INT % P_INT), dtype=torch.int32, device=device),  # 1 in Montgomery form
         "np_mat": torch.tensor(np_mat, dtype=torch.float64, device=device),
         "p_mat": torch.tensor(p_mat, dtype=torch.float64, device=device),
         "bits": torch.tensor([1 << i for i in range(N_LIMBS)], dtype=torch.int64, device=device),
@@ -162,6 +164,88 @@ def addsub(a: torch.Tensor, b: torch.Tensor, op: int) -> torch.Tensor:
     low = r & LIMB_MASK
     cin, _ = _chain(r >> LIMB_BITS, low == LIMB_MASK, c)
     return ((low + cin) & LIMB_MASK).int()
+
+
+def pow_bits(a: torch.Tensor, bits) -> torch.Tensor:
+    """K5's plain version: a^e in Montgomery form, e given as its bits from
+    the most significant, by square-and-multiply (the product with a only
+    at a set bit). 0 maps to 0."""
+    r = _consts(a.device)["one"].expand(a.shape)
+    for bit in bits:
+        r = mul(r, r)
+        if bit:
+            r = mul(r, a)
+    return r
+
+
+def _fq2_square(a: torch.Tensor) -> torch.Tensor:
+    """(a0 + a1 u)^2 = (a0 + a1)(a0 - a1) + 2 a0 a1 u, as K6 computes it."""
+    a0, a1 = a[..., 0, :], a[..., 1, :]
+    s = addsub(torch.stack([a0, a0]), torch.stack([a1, a0]), OP_ADD)  # a0 + a1, 2 a0
+    d = addsub(a0, a1, OP_SUB)
+    return mul(s, torch.stack([d, a1])).movedim(0, -2)
+
+
+def _fq2_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Karatsuba, as K6 computes it: t0 = a0 b0, t1 = a1 b1,
+    t2 = (a0 + a1)(b0 + b1); c0 = t0 - t1, c1 = t2 - t0 - t1."""
+    a0, a1, b0, b1 = a[..., 0, :], a[..., 1, :], b[..., 0, :], b[..., 1, :]
+    s = addsub(torch.stack([a0, b0]), torch.stack([a1, b1]), OP_ADD)
+    t = mul(torch.stack([a0, a1, s[0]]), torch.stack([b0, b1, s[1]]))
+    u = addsub(torch.stack([t[0], t[2]]), torch.stack([t[1], t[0]]), OP_SUB)
+    return torch.stack([u[0], addsub(u[1], t[1], OP_SUB)], dim=-2)
+
+
+def fq2_pow_bits(a: torch.Tensor, bits) -> torch.Tensor:
+    """K6's plain version: a^e in Fq2 (``(..., 2, 32)``, u^2 = -1), the walk
+    of ``pow_bits`` from (1, 0)."""
+    c = _consts(a.device)
+    r = torch.stack([c["one"], torch.zeros_like(c["one"])]).expand(a.shape)
+    for bit in bits:
+        r = _fq2_square(r)
+        if bit:
+            r = _fq2_mul(r, a)
+    return r
+
+
+# What K5/K6 are checked with, by the tests and by chip_smoke.py: the
+# exponents of the port's pow chains (square root, Legendre symbol, the Fq2
+# square root's a^((p-3)/4), inverse), the edge values, and the power on
+# Python integers.
+R_MONT = R_INT % P_INT  # 1 in Montgomery form
+EXPONENTS = {"sqrt": (P_INT + 1) // 4, "legendre": (P_INT - 1) // 2, "sqrt_a1": (P_INT - 3) // 4, "inv": P_INT - 2}
+# as limb values 0, 1, p-1 and R mod p; in Fq2 (1, 0), (0, 1) and (p-1, p-1),
+# as limb values and in Montgomery form, and 0
+POW_EDGES = {1: [0, 1, P_INT - 1, R_MONT],
+             2: [(1, 0), (0, 1), (P_INT - 1, P_INT - 1), (R_MONT, 0), (0, R_MONT),
+                 ((P_INT - 1) * R_MONT % P_INT, (P_INT - 1) * R_MONT % P_INT), (0, 0)]}
+
+
+def bits_msb(e: int) -> list:
+    return [int(c) for c in bin(e)[2:]]
+
+
+def pow_int(x, e: int, degree: int):
+    """x^e on Montgomery-form integers (a limb value v stands for v / R):
+    an int in Fq (degree 1), a pair (x0, x1) for x0 + x1 u in Fq2."""
+    rinv = pow(R_INT, -1, P_INT)
+    if degree == 1:
+        return pow(x * rinv % P_INT, e, P_INT) * R_MONT % P_INT
+    x0, x1 = x[0] * rinv % P_INT, x[1] * rinv % P_INT
+    r = (1, 0)
+    for c in bin(e)[2:]:
+        r = ((r[0] * r[0] - r[1] * r[1]) % P_INT, 2 * r[0] * r[1] % P_INT)
+        if c == "1":
+            r = ((r[0] * x0 - r[1] * x1) % P_INT, (r[0] * x1 + r[1] * x0) % P_INT)
+    return (r[0] * R_MONT % P_INT, r[1] * R_MONT % P_INT)
+
+
+def pow_values(n: int, degree: int, rng: np.random.Generator, edges: bool = True) -> list:
+    """n random elements of Fq (ints, degree 1) or Fq2 (pairs), with the
+    edge values as the last ones where n has room (16 or more)."""
+    tail = POW_EDGES[degree] if edges and n >= 16 else []
+    rand = [int.from_bytes(rng.bytes(48), "big") % P_INT for _ in range((n - len(tail)) * degree)]
+    return (rand if degree == 1 else list(zip(rand[0::2], rand[1::2]))) + tail
 
 
 if __name__ == "__main__":

@@ -98,6 +98,10 @@ def fq2_mul_nonresidue(a):
     return torch.stack([fq.sub(a0, a1), fq.add(a0, a1)], dim=-2)
 
 
+# a^e in Fq2 for a static exponent, in one call (K6 ``fq2_pow`` on the card)
+fq2_pow_bits = fq.fq2_pow_bits
+
+
 def fq2_inv(a):
     a0, a1 = a[..., 0, :], a[..., 1, :]
     t = fq.mul(a, a)

@@ -1,5 +1,6 @@
 """The port's kernels on the card — SHA-256 (K1/K2), the base field
-(K3 fq_mul, K4 fq_addsub) and the liveness probe — held against their
+(K3 fq_mul, K4 fq_addsub), the pow chains (K5 fq_pow, K6 fq2_pow) and the
+liveness probe — held against their
 plain PyTorch versions, hashlib and Python integers, and the Verify
 family on the card (scalar and batched) against the host oracle. These need
 a CUDA card and skip without one; on the card run them with
@@ -14,7 +15,7 @@ import torch
 
 from consensus_specs_tpu_torch import probe
 from consensus_specs_tpu_torch.crypto.bls import ciphersuite as host
-from consensus_specs_tpu_torch.ops import bls_torch, fq, fq_cuda, fq_plain
+from consensus_specs_tpu_torch.ops import bls_torch, fq, fq_cuda, fq_plain, tower
 from consensus_specs_tpu_torch.ops import sha256 as tdev
 from consensus_specs_tpu_torch.ops import sha256_cuda, sha256_plain
 
@@ -119,6 +120,58 @@ def test_one_thread_kernels_equal_the_lane_group_kernels(card, op):
     a, b = a.to(card), b.to(card)
     assert torch.equal(_kernel(op)(a, b), _kernel(op, "thread")(a, b))
     assert torch.equal(_kernel(op, "thread")(a[:1], b), _kernel(op)(a[:1], b))  # stride 0
+
+
+def _pow_operand(n, degree, seed):
+    """n random elements of Fq (degree 1) or Fq2, with the edge values as
+    the last rows where n has room for them."""
+    ints = fq_plain.pow_values(n, degree, np.random.default_rng(seed))
+    return torch.from_numpy(fq.to_limbs(ints)), ints
+
+
+_POW = {1: ("fq_pow", fq_cuda.fq_pow, fq_plain.pow_bits), 2: ("fq2_pow", fq_cuda.fq2_pow, fq_plain.fq2_pow_bits)}
+
+
+@pytest.mark.parametrize("exponent", list(fq_plain.EXPONENTS))
+@pytest.mark.parametrize("n", [1, 31, 130, 260, 4609, 16385])
+@pytest.mark.parametrize("degree", [1, 2])
+def test_pow_kernels_match_plain_versions(card, degree, n, exponent):
+    name, kernel, plain = _POW[degree]
+    a, ints = _pow_operand(n, degree, n)
+    e = fq_plain.EXPONENTS[exponent]
+    bits, x = fq_plain.bits_msb(e), a.to(card)
+    before, sized = fq_cuda.launches[name], fq_cuda.sizes[name].get(n, 0)
+    got = kernel(x, bits)
+    torch.cuda.synchronize()
+    assert fq_cuda.launches[name] == before + 1 and fq_cuda.sizes[name][n] == sized + 1
+    assert torch.equal(got, plain(x, bits))  # the plain version on the card
+    sample = sorted(set(range(0, n, max(1, n // 64))) | set(range(max(0, n - len(fq_plain.POW_EDGES[degree])), n)))
+    want = [fq_plain.pow_int(ints[i], e, degree) for i in sample]
+    values = fq.from_limbs(got[sample].cpu())
+    assert (list(values) if degree == 1 else [tuple(v) for v in values]) == want
+
+
+@pytest.mark.parametrize("degree", [1, 2])
+def test_pow_kernels_take_any_shape(card, degree):
+    name, kernel, plain = _POW[degree]
+    a, _ = _pow_operand(8, degree, 5)
+    bits = fq_plain.bits_msb(fq_plain.EXPONENTS["inv"])
+    one = a[:1].to(card)
+    for x in (one[0], one.expand((8,) + one.shape[1:]), a.to(card).view((2, 4) + a.shape[1:])):
+        got = kernel(x, bits)
+        assert got.shape == x.shape and torch.equal(got, plain(x, bits))
+
+
+def test_seams_take_the_pow_kernels_on_the_card(card):
+    a, _ = _pow_operand(4, 1, 9)
+    a2, _ = _pow_operand(4, 2, 9)
+    bits = fq_plain.bits_msb(fq_plain.EXPONENTS["sqrt_a1"])
+    before = dict(fq_cuda.launches)
+    x = fq.inv(a.to(card))
+    y = tower.fq2_pow_bits(a2.to(card), bits)
+    assert fq_cuda.launches["fq_pow"] == before["fq_pow"] + 1 and fq_cuda.launches["fq2_pow"] == before["fq2_pow"] + 1
+    assert fq_cuda.launches["fq_mul"] == before["fq_mul"] and fq_cuda.launches["fq_addsub"] == before["fq_addsub"]
+    assert torch.equal(x.cpu(), fq.inv(a)) and torch.equal(y.cpu(), tower.fq2_pow_bits(a2, bits))
 
 
 def test_probe_kernel(card):

@@ -1,14 +1,16 @@
 """The port's base field (``consensus_specs_tpu_torch.ops.fq``: the plain
-PyTorch versions of K3 ``fq_mul`` and K4 ``fq_addsub``) against the JAX
-package's ``ops/fq.py`` under ``jax.jit`` and Python integers. Every
+PyTorch versions of K3 ``fq_mul``, K4 ``fq_addsub`` and the pow chains K5
+``fq_pow``/K6 ``fq2_pow``) against the JAX package's ``ops/fq.py`` and
+``ops/curve_jax.py`` under ``jax.jit`` and Python integers. Every
 comparison is bit-exact on the limbs: both packages return canonical
 residues. Inputs are seeded numpy limb arrays handed to both.
 
 The kernels' own arithmetic (``csrc/fq.cuh``: the one-thread bodies with
 the 12-bit to 32-bit repacking at their boundary, and the lane-group bodies
-of K3/K4 with a group's lanes run in lockstep over arrays) also compiles as
-plain C++; where a host C++ compiler is present it is built here and held
-against the plain versions on the same inputs."""
+of K3/K4 and of the K5/K6 chains with a group's lanes run in lockstep over
+arrays) also compiles as plain C++; where a host C++ compiler is present it
+is built here and held against the plain versions and Python integers on
+the same inputs."""
 import ctypes
 import shutil
 import subprocess
@@ -18,8 +20,9 @@ import numpy as np
 import pytest
 import torch
 
+from consensus_specs_tpu.ops import curve_jax as jcurve
 from consensus_specs_tpu.ops import fq as jfq
-from consensus_specs_tpu_torch.ops import cuda_build, fq, fq_plain
+from consensus_specs_tpu_torch.ops import cuda_build, fq, fq_plain, tower
 
 P = fq.P_INT
 RINV = pow(1 << 384, -1, P)
@@ -86,6 +89,13 @@ def test_mont_round_trip_and_inverse():
     np.testing.assert_array_equal(inv.numpy(), _jax("inv", m.numpy()))
     want = [pow(int(v), P - 2, P) for v in fq.from_limbs(a).ravel()]  # 0 -> 0
     assert list(fq.from_limbs(fq.from_mont(inv)).ravel()) == want
+    # the pow chains' seams against the JAX package's, on seeded elements
+    x, x2 = m[0, :3], m[0, 4:8].reshape(2, 2, 32)
+    sqrt_bits, a1_bits = jcurve._FQ_SQRT_BITS, jcurve._FQ2_SQRT_A1_BITS
+    np.testing.assert_array_equal(fq.pow_bits(x, sqrt_bits.tolist()).numpy(),
+                                  np.asarray(jax.jit(lambda v: jcurve.fq_pow_bits(v, sqrt_bits))(x.numpy())))
+    np.testing.assert_array_equal(tower.fq2_pow_bits(x2, a1_bits.tolist()).numpy(),
+                                  np.asarray(jax.jit(lambda v: jcurve.fq2_pow_bits(v, a1_bits))(x2.numpy())))
 
 
 def test_broadcasting_and_shapes():
@@ -108,6 +118,10 @@ def test_wrappers_dispatch_cpu_tensors_to_the_plain_versions():
     assert torch.equal(fq.sub(a, b), fq_plain.addsub(a, b, fq_plain.OP_SUB))
     with pytest.raises(ValueError, match="no kernel"):
         fq.add(a.to("meta"), b.to("meta"))
+    with pytest.raises(ValueError, match="no kernel"):
+        fq.pow_bits(a.to("meta"), [1, 1])
+    with pytest.raises(ValueError, match="no kernel"):
+        tower.fq2_pow_bits(a.view(2, 2, 32).to("meta"), [1, 1])
 
 
 _HOST_SRC = r"""
@@ -128,26 +142,39 @@ extern "C" void host_fq(const int32_t* a, const int32_t* b, int32_t* out, long n
 }
 
 // the lane-group bodies, G lanes an element; lane l's digits D l + k are
-// limbs 2 (D l + k) and 2 (D l + k) + 1, as fq.cu loads and stores them
+// limbs 2 (D l + k) and 2 (D l + k) + 1, as fq.cuh's load_digits and
+// store_digits move them
+template <int G>
+void host_load(fq::lanes::Lanes<uint32_t, G> x[fq::lanes::kDigits / G], const int32_t* src) {
+  constexpr int D = fq::lanes::kDigits / G;
+  for (int l = 0; l < G; ++l)
+    for (int k = 0; k < D; ++k) {
+      const int j = 2 * (D * l + k);
+      x[k].v[l] = (uint32_t)src[j] | ((uint32_t)src[j + 1] << 12);
+    }
+}
+
+template <int G>
+void host_store(int32_t* dst, const fq::lanes::Lanes<uint32_t, G> r[fq::lanes::kDigits / G]) {
+  constexpr int D = fq::lanes::kDigits / G;
+  for (int l = 0; l < G; ++l)
+    for (int k = 0; k < D; ++k) {
+      const int j = 2 * (D * l + k);
+      dst[j] = (int32_t)(r[k].v[l] & 0xfffu);
+      dst[j + 1] = (int32_t)(r[k].v[l] >> 12);
+    }
+}
+
 template <int G>
 void host_lanes(const int32_t* a, const int32_t* b, int32_t* out, long n, int op) {
   constexpr int D = fq::lanes::kDigits / G;
   for (long i = 0; i < n; ++i) {
     fq::lanes::Lanes<uint32_t, G> x[D], y[D], r[D];
-    for (int l = 0; l < G; ++l)
-      for (int k = 0; k < D; ++k) {
-        const long j = 32 * i + 2 * (D * l + k);
-        x[k].v[l] = (uint32_t)a[j] | ((uint32_t)a[j + 1] << 12);
-        y[k].v[l] = (uint32_t)b[j] | ((uint32_t)b[j + 1] << 12);
-      }
+    host_load<G>(x, a + 32 * i);
+    host_load<G>(y, b + 32 * i);
     if (op == 3) fq::lanes::mont_mul<G>(r, x, y);
     else fq::lanes::addsub<G>(r, x, y, op);
-    for (int l = 0; l < G; ++l)
-      for (int k = 0; k < D; ++k) {
-        const long j = 32 * i + 2 * (D * l + k);
-        out[j] = (int32_t)(r[k].v[l] & 0xfffu);
-        out[j + 1] = (int32_t)(r[k].v[l] >> 12);
-      }
+    host_store<G>(out + 32 * i, r);
   }
 }
 
@@ -157,6 +184,26 @@ extern "C" long host_fq_lanes(const int32_t* a, const int32_t* b, int32_t* out, 
   fq::lanes::lane_faults = 0;
   if (lanes == 4) host_lanes<4>(a, b, out, n, op);
   else host_lanes<8>(a, b, out, n, op);
+  return fq::lanes::lane_faults;
+}
+
+// the pow chains of fq_pow.cu on groups of 4 lanes: K5 (degree 1, elements
+// of 32 limbs) or K6 (degree 2, of 2 x 32), the exponent as its 12 words
+// and bit length; returns the reads of another lane's entry
+extern "C" long host_fq_pow_lanes(const int32_t* a, int32_t* out, long n, int degree, const uint32_t* words,
+                                  int bits) {
+  constexpr int G = 4, D = fq::lanes::kDigits / G;
+  fq::lanes::Exponent e;
+  for (int j = 0; j < fq::kWords; ++j) e.words[j] = words[j];
+  e.bits = bits;
+  fq::lanes::lane_faults = 0;
+  for (long i = 0; i < n; ++i) {
+    fq::lanes::Lanes<uint32_t, G> x[2][D], r[2][D];
+    for (int c = 0; c < degree; ++c) host_load<G>(x[c], a + 32 * (degree * i + c));
+    if (degree == 1) fq::lanes::pow<G>(r[0], x[0], e);
+    else fq::lanes::fq2_pow<G>(r, x, e);
+    for (int c = 0; c < degree; ++c) host_store<G>(out + 32 * (degree * i + c), r[c]);
+  }
   return fq::lanes::lane_faults;
 }
 """
@@ -176,6 +223,9 @@ def host_kernel_lib(tmp_path_factory):
     handle.host_fq.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_long, ctypes.c_int]
     handle.host_fq_lanes.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_long, ctypes.c_int, ctypes.c_int]
     handle.host_fq_lanes.restype = ctypes.c_long
+    handle.host_fq_pow_lanes.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_long, ctypes.c_int, ctypes.c_void_p,
+                                                                 ctypes.c_int]
+    handle.host_fq_pow_lanes.restype = ctypes.c_long
     return handle
 
 
@@ -203,3 +253,29 @@ def test_kernel_arithmetic_matches_plain_versions(host_kernel_lib, op, lanes):
     else:
         want = fq_plain.addsub(ta, tb, op)
     np.testing.assert_array_equal(out, want.numpy())
+
+
+# random values and the edge values
+POW_FQ = _rand(6) + fq_plain.POW_EDGES[1]
+POW_FQ2 = [tuple(_rand(2)) for _ in range(3)] + fq_plain.POW_EDGES[2]
+
+
+@pytest.mark.parametrize("exponent", list(fq_plain.EXPONENTS))
+@pytest.mark.parametrize("degree", [1, 2])
+def test_pow_chain_arithmetic_matches_integers_and_plain_versions(host_kernel_lib, degree, exponent):
+    """K5 (degree 1) and K6 (degree 2): fq.cuh's pow / fq2_pow on groups of
+    4 lanes, bit-exact against Python integers and the plain versions, with
+    no read of another lane's entry."""
+    e = fq_plain.EXPONENTS[exponent]
+    words = np.array([(e >> (32 * j)) & 0xFFFFFFFF for j in range(12)], dtype=np.uint32)
+    ints = POW_FQ if degree == 1 else POW_FQ2
+    a = np.ascontiguousarray(fq.to_limbs(ints))
+    out = np.zeros_like(a)
+    faults = host_kernel_lib.host_fq_pow_lanes(a.ctypes.data, out.ctypes.data, len(ints), degree, words.ctypes.data,
+                                               e.bit_length())
+    assert faults == 0, f"{faults} reads of another lane's entry: the card would read its own"
+    plain = fq_plain.pow_bits if degree == 1 else fq_plain.fq2_pow_bits
+    np.testing.assert_array_equal(out, plain(torch.from_numpy(a), fq_plain.bits_msb(e)).numpy())
+    values = fq.from_limbs(out)
+    want = [fq_plain.pow_int(x, e, degree) for x in ints]
+    assert (list(values) if degree == 1 else [tuple(v) for v in values]) == want

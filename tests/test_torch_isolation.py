@@ -53,7 +53,7 @@ def test_importing_the_port_loads_neither():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in {'jax', 'jaxlib', 'consensus_specs_tpu'})\n"
         "assert not bad, bad\n"
         "assert sha256_cuda._lib is None  # nothing built at import\n"
-        "assert fq_cuda._lib is None and probe._lib is None\n"
+        "assert fq_cuda._lib is None and fq_cuda._pow_lib is None and probe._lib is None\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=PACKAGE.parent, capture_output=True, text=True,
                           timeout=120)
@@ -95,6 +95,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     for op in (0, 1, 2):
         with pytest.raises(ValueError, match="CUDA tensor"):
             fq_cuda.fq_addsub(x, x, op)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fq_cuda.fq_pow(x, [1, 0, 1])
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fq_cuda.fq2_pow(x.view(1, 2, 32), [1, 0, 1])
     assert fq_cuda.launches == before
     # the probe's wrapper takes its plain version for a CPU tensor, and counts no launch
     assert torch.equal(probe.add_one(x), x + 1) and probe.launches["add_one"] == 0
