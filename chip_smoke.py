@@ -5,7 +5,7 @@
 Phases, each raising on any mismatch:
 
 0. build: nvcc for sm_90a on every source of ops/csrc (sha256.cu, fq.cu,
-   fq_pow.cu, probe.cu), one process each, all started together.
+   fq_pow.cu, curve.cu, probe.cu), one process each, all started together.
 1. env: torch/CUDA versions, the card's name and power limit; the liveness
    probe (probe.cu, ``x + 1`` on (8, 128) int32) against its plain version.
 2. kernels: K1 (sha256_blocks) and K2 (sha256_raw_blocks) on 2^20 random
@@ -20,8 +20,14 @@ Phases, each raising on any mismatch:
    (fq2_pow), the pow chains, at 260 and 16,385 elements for each of the
    four exponents ((p+1)/4, (p-1)/2, (p-3)/4, p-2) on random values and
    edge values: bit-exact against their plain versions on the card and
-   against Python integers on a sample. After the bls phase the same
-   checks run again at every size a flush launched.
+   against Python integers on a sample. K7 (g1_mul_static) and K8
+   (g2_mul_static), the static scalar ladders, at 1, 130, 260 and 16,385
+   points for k = |x| and a random k, on random multiples of the
+   generators and the edge points (infinity, points outside the
+   r-torsion, the G1 3-torsion points): bit-exact against their plain
+   version on the card (which launches no kernel) and against the host
+   oracle on a sample. After the bls phase the same checks run again at
+   every size a flush launched.
 3. state_root: a mainnet-preset phase0 BeaconState of ``--validators``
    validators with real keys (pubkey(i) = (i + 1) G1); hash_tree_root on
    the device hasher and on the host (hashlib) must agree, with >= 90% of
@@ -36,12 +42,12 @@ Phases, each raising on any mismatch:
    runs each under a deferred BLS verifier with the torch backend on the
    card: ONE flush per block verifies its ~130 checks (pubkey decode,
    signature decompression, hash-to-G2, aggregation, Miller loops, final
-   exponentiation, all on K3-K6). Every row must hold, a sample of rows
+   exponentiation, all on K3-K8). Every row must hold, a sample of rows
    must be decided the same by the host oracle, and the post-state root
    must equal the host's at every slot. Each flush is timed from its call
    to its last result (checks/s); the first is traced under torch.profiler
-   for the card's busy share. Each flush must make exactly the K3, K4, K5
-   and K6 launches of ``FLUSH_LAUNCHES``; the launch-size histogram of the
+   for the card's busy share. Each flush must make exactly the K3-K8
+   launches of ``FLUSH_LAUNCHES``; the launch-size histogram of the
    first untraced flush is printed. Then a tampered block (one
    attestation signed over another message): the card must reject exactly
    that row, the host oracle must agree, and the transition must raise on
@@ -52,8 +58,10 @@ Phases, each raising on any mismatch:
    bound and the launch floor (the probe's device time). K5/K6 at every
    size a flush launched them (and at 1 element, for the latency of one
    product), in turns with the same chain as a loop of K3/K4 launches:
-   device time and wall time a chain. The kernels line gives each at its
-   most frequent size.
+   device time and wall time a chain. K7/K8 likewise by |x|, at 1 point and
+   every size a flush launched them, in turns with the ladder as a loop of
+   K3/K4 launches. The kernels line gives each
+   at its most frequent size.
 
 Prints the whole report as one ``[report]`` JSON line, then one JSON line
 of kernel records, the card's name and power limit, and last
@@ -82,6 +90,8 @@ from consensus_specs_tpu_torch import harness, probe  # noqa: E402
 from consensus_specs_tpu_torch.crypto import bls  # noqa: E402
 from consensus_specs_tpu_torch.crypto.bls import ciphersuite  # noqa: E402
 from consensus_specs_tpu_torch.ops import bls_torch, fq, fq_cuda, fq_plain, tower  # noqa: E402
+from consensus_specs_tpu_torch.ops import curve_torch as cj  # noqa: E402
+from consensus_specs_tpu_torch.ops import ladder_checks as lc  # noqa: E402
 from consensus_specs_tpu_torch.ops import sha256 as dev  # noqa: E402
 from consensus_specs_tpu_torch.ops import sha256_cuda, sha256_plain  # noqa: E402
 from consensus_specs_tpu_torch.specs import build_spec  # noqa: E402
@@ -89,6 +99,7 @@ from consensus_specs_tpu_torch.specs import build_spec  # noqa: E402
 SOURCE = "consensus_specs_tpu_torch/ops/csrc/sha256.cu"
 FQ_SOURCE = "consensus_specs_tpu_torch/ops/csrc/fq.cu"
 FQ_POW_SOURCE = "consensus_specs_tpu_torch/ops/csrc/fq_pow.cu"
+CURVE_SOURCE = "consensus_specs_tpu_torch/ops/csrc/curve.cu"
 PROBE_SOURCE = "consensus_specs_tpu_torch/ops/csrc/probe.cu"
 # 32-bit integer instructions per message, counted from the round
 # structure of csrc/sha256.cu: a round is 6 funnel-shift rotates, 4 LOP3
@@ -101,16 +112,20 @@ K1_INT_OPS = K2_INT_OPS + 64 * 14 + 8  # plus the constant padding block: 2,312
 # counted once from the one-thread form in csrc/fq.cuh and kept whatever
 # kernel implements it (the lane-group kernels run more instructions in
 # all, for their exchanges), so every kernel's roofline reads the same work.
+# Repacking an element's limbs in (8 limbs -> 3 words: 10 shift/or each
+# group, 40) and out (16 shift/and a group, 64).
+PACK_IN_OPS, PACK_OUT_OPS = 40, 64
 # K3: the CIOS loop is 12 x 12 operand steps and 12 x 12 reduction steps,
 # each a 32 x 32 -> 64-bit multiply (2: low and high halves) and two 64-bit
 # adds (4), so 6 a step: 1,728; plus 12 m = t0 * n0' multiplies, the
-# conditional subtraction (12 subtract-with-borrow, 12 selects) and the
-# repacking of two operands in (8 limbs -> 3 words: 10 shift/or each group,
-# 40 an operand) and one result out (16 shift/and a group, 64): 1,908.
-K3_INT_OPS = 2 * 144 * 6 + 12 + 24 + 2 * 40 + 64
+# conditional subtraction (12 subtract-with-borrow, 12 selects): 1,764; and
+# the repacking of two operands in and one result out (144): 1,908.
+K3_ARITH_OPS = 2 * 144 * 6 + 12 + 24
+K3_INT_OPS = K3_ARITH_OPS + 2 * PACK_IN_OPS + PACK_OUT_OPS
 # K4: a 12-word add or subtract with carries (24), the conditional
-# subtraction or add-back of p (24 + 12), and the same repacking (144): 204.
-K4_INT_OPS = 24 + 36 + 2 * 40 + 64
+# subtraction or add-back of p (24 + 12): 60; and the same repacking: 204.
+K4_ARITH_OPS = 24 + 36
+K4_INT_OPS = K4_ARITH_OPS + 2 * PACK_IN_OPS + PACK_OUT_OPS
 FQ_BYTES = 3 * 4 * 32  # two (32,) int32 operands read, one written
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 INT32_LANES_PER_SM = 64  # Hopper SM: 64 INT32 results per clock
@@ -123,8 +138,15 @@ INT32_LANES_PER_SM = 64  # Hopper SM: 64 INT32 results per clock
 # launches (one K3 and two K4 a squaring and a product: 2 x (379 + 228) +
 # 2 x (380 + 229) = 2,432). Each chain is now one K5 or K6 launch, so
 # K3 10,047 - 3,657 - 2,432 = 3,958, K4 22,372 - 4,864 = 17,508, in all
-# 21,466 K3/K4 launches and 10 chain launches.
-FLUSH_LAUNCHES = {"fq_mul": 3958, "fq_addsub": 17508, "fq_pow": 6, "fq2_pow": 4}
+# 21,466 K3/K4 launches and 10 chain launches. The flush's 5 static scalar
+# ladders by |x| (2 on G1 in the pubkey decode's subgroup test, 1 on G2 in
+# the signatures', 2 on G2 in hash-to-G2's cofactor clearing) ran inside
+# those: 556 K3 and 1,022 K4 launches a G1 ladder, 556 and 2,134 a G2
+# ladder. Each ladder is now one K7 or K8 launch, so K3 3,958 - 5 x 556 =
+# 1,178, K4 17,508 - (2 x 1,022 + 3 x 2,134) = 9,062: 10,240 K3/K4
+# launches and 15 chain and ladder launches.
+FLUSH_LAUNCHES = {"fq_mul": 1178, "fq_addsub": 9062, "fq_pow": 6, "fq2_pow": 4, "g1_mul_static": 2,
+                  "g2_mul_static": 3}
 DEFAULT_VALIDATORS = 1 << 19
 
 P = fq.P_INT
@@ -173,28 +195,39 @@ def cuda_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
+def traced(run) -> list:
+    """The CUDA kernel events of ``run()``, traced by torch.profiler after
+    a warm-up pass of it under the same profiler: CUPTI drops events at the
+    start of a trace, sometimes most of a short one, and the warm-up pass
+    takes that loss (its events are discarded)."""
+    schedule = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA], schedule=schedule) as prof:
+        for _ in range(2):
+            run()
+            torch.cuda.synchronize()
+            prof.step()
+    return [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
 def device_ms_turns(fns: dict, reps: int = 20, windows: int = 3) -> dict:
     """Mean device time of one launch of each kernel in ``fns`` (a
     substring of its symbol -> a call that launches it), the calls made in
     turns in one profiler window: in order on even rounds, reversed on odd
     ones. A small kernel's CUDA-event time per call is the host's time to
-    enqueue it; this is the time the card spends in it. CUPTI may drop
-    events at a buffer edge, or a whole window's: a window that saw fewer
-    than half of any kernel's launches is measured again, up to
-    ``windows`` times, and then the phase fails."""
-    for fn in fns.values():
-        fn()
-    torch.cuda.synchronize()
+    enqueue it; this is the time the card spends in it. CUPTI may still
+    drop events at a buffer edge: a window that saw fewer than half of any
+    kernel's launches is measured again, up to ``windows`` times, and then
+    the phase fails."""
     order = list(fns)
+
+    def run():
+        for r in range(reps):
+            for k in order if r % 2 == 0 else order[::-1]:
+                fns[k]()
+
     for window in range(1, windows + 1):
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for r in range(reps):
-                for k in order if r % 2 == 0 else order[::-1]:
-                    fns[k]()
-            torch.cuda.synchronize()
-        averages = prof.key_averages()
-        events = {k: [e for e in averages if k in e.key and e.device_type == torch.autograd.DeviceType.CUDA]
-                  for k in fns}
+        averages = traced(run)
+        events = {k: [e for e in averages if k in e.key] for k in fns}
         counts = {k: sum(e.count for e in ev) for k, ev in events.items()}
         if min(counts.values()) >= reps // 2:
             return {k: sum(e.self_device_time_total for e in ev) / counts[k] / 1e3 for k, ev in events.items()}
@@ -218,11 +251,12 @@ def require(cond: bool, what: str) -> None:
 def phase_build(report: dict) -> None:
     """One nvcc per source, all started together."""
     t0 = time.perf_counter()
-    builds = (sha256_cuda.build, fq_cuda.build, fq_cuda.build_pow, probe.build)
+    builds = (sha256_cuda.build, fq_cuda.build, fq_cuda.build_pow, fq_cuda.build_curve, probe.build)
     with ThreadPoolExecutor(max_workers=len(builds)) as pool:
         libs = list(pool.map(lambda build: build(verbose=True), builds))
     report["build_s"] = time.perf_counter() - t0
-    print(f"[build] {SOURCE}, {FQ_SOURCE}, {FQ_POW_SOURCE}, {PROBE_SOURCE} in {report['build_s']:.1f}s: "
+    print(f"[build] {SOURCE}, {FQ_SOURCE}, {FQ_POW_SOURCE}, {CURVE_SOURCE}, {PROBE_SOURCE} in "
+          f"{report['build_s']:.1f}s: "
           f"{[lib.name for lib in libs]}", flush=True)
 
 
@@ -364,6 +398,14 @@ POW = {
 }
 
 
+def resident_int_ops(products: int, sums: int, elements: int) -> int:
+    """The integer operations of a kernel that keeps its values in
+    registers from the first field op to the last (K5-K8): each product
+    and sum without K3/K4's per-call repacking, and the repacking of its
+    ``elements`` Fq elements in and out once."""
+    return products * K3_ARITH_OPS + sums * K4_ARITH_OPS + elements * (PACK_IN_OPS + PACK_OUT_OPS)
+
+
 def chain_work(name: str, e: int) -> tuple:
     """(Montgomery products, field sums, products one after another) of one
     element's chain: a square at every bit and a product at every set bit;
@@ -431,43 +473,37 @@ def phase_pow_kernels(report: dict, seed: int, sizes: dict, label: str) -> None:
           f"{ {k: errs[k] for k in POW} }", flush=True)
 
 
-def chain_turns(name: str, a: torch.Tensor, bits: list, reps: int, windows: int = 3) -> dict:
-    """One chain as K5/K6 and as the loop of K3/K4 launches it replaced,
-    in turns: device time from one profiler window (the loop's: every
-    kernel it launched, the tower's stacking copies included), and wall
-    time a chain on the host's clock, from its call to its result, in a
-    second round of turns without the profiler. CUPTI may drop events: a
-    window that saw fewer than half of the K5/K6 launches (as
+def loop_turns(symbol: str, new, old, reps: int, windows: int = 3) -> dict:
+    """A kernel (``new``: a call that launches it once; ``symbol``: a
+    substring of its name) in turns with ``old``, the loop of K3/K4
+    launches it replaced: device time from one profiler window (the
+    loop's: every kernel it launched, copies included), and wall time a
+    call on the host's clock, from its call to its result, in a second
+    round of turns without the profiler. CUPTI may drop events: a window
+    that saw fewer than half of the kernel's launches (as
     ``device_ms_turns`` asks) or 90% of the loop's K3/K4 launches is
     measured again, up to ``windows`` times."""
-    new = lambda: POW[name]["kernel"](a, bits)  # noqa: E731
-    old = lambda: loop_chain(name, a, bits)  # noqa: E731
     before = sum(fq_cuda.launches[k] for k in ("fq_mul", "fq_addsub"))
     old()
     per_loop = sum(fq_cuda.launches[k] for k in ("fq_mul", "fq_addsub")) - before
-    new()
-    torch.cuda.synchronize()
-    symbol = f"{name}_kernel"
+
+    def run():
+        for r in range(reps):
+            for fn in (new, old) if r % 2 == 0 else (old, new):
+                fn()
+
     for _ in range(windows):
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for r in range(reps):
-                for fn in (new, old) if r % 2 == 0 else (old, new):
-                    fn()
-            torch.cuda.synchronize()
-        events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        events = traced(run)
         ours = [e for e in events if symbol in e.key]
         base = [e for e in events if "fq_mul_lanes" in e.key or "fq_addsub_lanes" in e.key]
         seen, seen_base = sum(e.count for e in ours), sum(e.count for e in base)
         if seen >= max(1, reps // 2) and seen_base >= 0.9 * reps * per_loop:
             break
-        print(f"[profiler] saw {seen} of {reps} {name} launches, {seen_base} of {reps * per_loop} K3/K4", flush=True)
+        print(f"[profiler] saw {seen} of {reps} {symbol} launches, {seen_base} of {reps * per_loop} K3/K4", flush=True)
     else:
         raise AssertionError(f"the profiler saw too few launches in {windows} windows")
     ours_us = sum(e.self_device_time_total for e in ours)
-    ms = ours_us / seen / 1e3
     scale = reps * per_loop / seen_base  # the loop's launches made / seen: the profiler may drop some
-    loop_k34_ms = sum(e.self_device_time_total for e in base) / 1e3 / reps * scale
-    loop_ms = (sum(e.self_device_time_total for e in events) - ours_us) / 1e3 / reps * scale
     wall = {"new": 0.0, "old": 0.0}
     for r in range(reps):
         for key, fn in (("new", new), ("old", old)) if r % 2 == 0 else (("old", old), ("new", new)):
@@ -476,15 +512,17 @@ def chain_turns(name: str, a: torch.Tensor, bits: list, reps: int, windows: int 
             fn()
             torch.cuda.synchronize()
             wall[key] += (time.perf_counter() - t0) * 1e3 / reps
-    return {"ms": ms, "loop_device_ms": loop_ms, "loop_k3k4_device_ms": loop_k34_ms, "loop_launches": per_loop,
-            "wall_ms": wall["new"], "loop_wall_ms": wall["old"]}
+    return {"ms": ours_us / seen / 1e3,
+            "loop_device_ms": (sum(e.self_device_time_total for e in events) - ours_us) / 1e3 / reps * scale,
+            "loop_k3k4_device_ms": sum(e.self_device_time_total for e in base) / 1e3 / reps * scale,
+            "loop_launches": per_loop, "wall_ms": wall["new"], "loop_wall_ms": wall["old"]}
 
 
 def phase_pow_timing(report: dict, card: "Card", seed: int, hist: dict) -> None:
     """K5/K6 at 1 element and at every size a flush launched them (``hist``:
     elements -> launches), each in turns with the loop of K3/K4 launches it
-    replaced, beside its bounds: operations (the chain's products x
-    K3_INT_OPS + sums x K4_INT_OPS, times n), bytes (each element read and
+    replaced, beside its bounds: operations (``resident_int_ops`` of the
+    chain's products and sums, times n), bytes (each element read and
     written once), the launch floor, and the latency floor (the chain's
     depth in products x one product's latency, read from K5 at 1 element).
     Each kernel's record is taken at its most frequent size."""
@@ -499,10 +537,12 @@ def phase_pow_timing(report: dict, card: "Card", seed: int, hist: dict) -> None:
         by_size = {}
         for n in dict.fromkeys([1] + sorted(hist[name])):
             a, _ = pow_operand(n, k["degree"], rng, edges=False)
-            t = chain_turns(name, a, bits, reps=4 if n > 1 else 6)
+            t = loop_turns(f"{name}_kernel", lambda: k["kernel"](a, bits), lambda: loop_chain(name, a, bits),
+                           reps=4 if n > 1 else 6)
             if name == "fq_pow" and n == 1:
                 product_ms = t["ms"] / depth
-            bound, bound_by = card.bound_ms(n, products * K3_INT_OPS + sums * K4_INT_OPS, 2 * 128 * k["degree"] * n)
+            bound, bound_by = card.bound_ms(n, resident_int_ops(products, sums, k["degree"]),
+                                            2 * 128 * k["degree"] * n)
             by_size[n] = {**t, "bound_ms": bound, "bound_by": bound_by, "latency_floor_ms": depth * product_ms,
                           "flush_launches": hist[name].get(n, 0)}
             print(f"[pow_timing] {name} at {n} elements ({hist[name].get(n, 0)} launches a flush, {k['timed']}): "
@@ -517,6 +557,114 @@ def phase_pow_timing(report: dict, card: "Card", seed: int, hist: dict) -> None:
                      "library_ms": None, "floor_ms": floor, "by_size": by_size,
                      **{key: by_size[n][key] for key in ("ms", "bound_ms", "bound_by", "latency_floor_ms")}}
     report["pow_timing"] = out
+
+
+# K7/K8: the wrapper, the group, and the adapter of the ladder's K3/K4
+# composition (curve_torch)
+LADDER = {
+    "g1_mul_static": {"g2": False, "kernel": fq_cuda.g1_mul_static, "F": cj.FQ},
+    "g2_mul_static": {"g2": True, "kernel": fq_cuda.g2_mul_static, "F": cj.FQ2},
+}
+LADDER_REPLACES = "consensus_specs_tpu/ops/curve_jax.py:219"
+LADDER_SIZES = [1, 130, 260, 16385]  # one point, a flush's 130 and 2 x 130 rows, a decode's 16,385 keys
+
+
+def ladder_work(g2: bool, k: int) -> tuple:
+    """(Fq products, Fq sums) of one element's ladder by k as curve.cuh
+    computes it: a doubling is 5 squares, 2 products and 14 sums of the
+    coordinate field, an addition 5 squares, 11 products and 13 sums and a
+    doubling; in Fq2 a square is 2 Fq products and 3 sums, a product 3 and
+    5, a sum 2. For k = |x|: 556 products and 1,017 sums on G1, 1,303 and
+    4,084 on G2. With ``resident_int_ops`` (the point's 3 or 6 Fq elements
+    repacked once): 556 x 1,764 + 1,017 x 60 + 3 x 104 = 1,042,116 integer
+    operations a G1 point, 1,303 x 1,764 + 4,084 x 60 + 6 x 104 = 2,544,156
+    a G2 point."""
+    doublings, additions = k.bit_length() - 1, bin(k).count("1") - 1
+    (sq_p, sq_s), (mul_p, mul_s), add_s = ((2, 3), (3, 5), 2) if g2 else ((1, 0), (1, 0), 1)
+
+    def cost(squares: int, products: int, sums: int) -> tuple:
+        return squares * sq_p + products * mul_p, squares * sq_s + products * mul_s + sums * add_s
+
+    (dbl_p, dbl_s), (add_p, add_ss) = cost(5, 2, 14), cost(5, 11, 13)
+    return (doublings + additions) * dbl_p + additions * add_p, (doublings + additions) * dbl_s + additions * add_ss
+
+
+def phase_ladder_kernels(report: dict, seed: int, sizes: dict, label: str) -> None:
+    """K7/K8 bit-exact against the plain version on the card at each of
+    ``sizes[name]`` elements, for k = |x| and a random k: random multiples
+    of the generator as random Jacobian representatives, with the edge
+    points (infinity, a point outside the r-torsion, on G1 the 3-torsion
+    points (0, 2) and (0, -2)) as the last rows where n has room. The plain
+    runs launch no kernel, and their points of a sample and of every edge
+    row equal the host oracle's. ``report["fq_checks"]`` keeps each
+    kernel's largest error."""
+    rng = np.random.default_rng([seed, 8])
+    k_random = int(rng.integers(1 << 40, 1 << 62)) | 1 << 63
+    errs = report.setdefault("fq_checks", {})
+    for name, spec in LADDER.items():
+        g2 = spec["g2"]
+        for n in sizes[name]:
+            pt, hosts = lc.ladder_points(n, g2, rng, "cuda")
+            edges = len(lc.ladder_edges(g2)) if n >= 16 else 0
+            sample = sorted(set(range(0, n, max(1, n // 16))) | set(range(n - edges, n)))
+            for k in (cj.X_PARAM, k_random):
+                got = spec["kernel"](pt, k)
+                torch.cuda.synchronize()
+                before = dict(fq_cuda.launches)
+                want = cj.scalar_mul_static_plain(spec["F"], pt, k)
+                require(fq_cuda.launches == before, f"the plain ladder launched: {before} -> {fq_cuda.launches}")
+                err = max(max_abs_err(x, y) for x, y in zip(got, want))
+                require(err == 0, f"{name} k={k:#x} disagrees with its plain version at {n} (max abs err {err})")
+                require(lc.limbs_to_ints(got, g2, sample) == [lc.point_ints(hosts[i].mul(k)) for i in sample],
+                        f"{name} k={k:#x} disagrees with the host oracle at {n}")
+                errs[name] = max(errs.get(name, 0), err)
+    report.setdefault("ladder_checked_sizes", []).append(sizes)
+    print(f"[kernels] K7/K8 ({label}): bit-exact against the plain version at {sizes} elements for k = |x| and "
+          f"{k_random:#x}, edge points where n has room, host oracle on a sample: "
+          f"{ {k: errs[k] for k in LADDER} }", flush=True)
+
+
+def phase_ladder_timing(report: dict, card: "Card", seed: int, hist: dict) -> None:
+    """K7/K8 by |x| at 1 element and at every size a flush launched them
+    (``hist``: elements -> launches), each in turns with the loop of K3/K4
+    launches it replaced (``curve_torch.ladder`` on FQ/FQ2), beside its
+    bounds: operations (``resident_int_ops`` of ``ladder_work``'s products
+    and sums, times n), bytes (each point read and written once), the
+    launch floor, and the latency floor: the kernel's own time at 1
+    element, where a ladder is one dependent chain of products on one group
+    and the card has nothing else to run. That floor is self-referential:
+    it bounds the kernel at larger n, and says nothing of whether one
+    ladder is slow. Each kernel's record is taken at its most frequent
+    size."""
+    rng = np.random.default_rng([seed, 9])
+    floor = report["probe"]["ms"]
+    k = cj.X_PARAM
+    out = {}
+    for name, spec in LADDER.items():
+        g2 = spec["g2"]
+        products, sums = ladder_work(g2, k)
+        by_size = {}
+        for n in dict.fromkeys([1] + sorted(hist[name])):
+            pt, _ = lc.ladder_points(n, g2, rng, "cuda", distinct=8)
+            t = loop_turns(f"{name}_kernel", lambda: spec["kernel"](pt, k), lambda: cj.ladder(spec["F"], pt, k),
+                           reps=4 if n > 1 else 6)
+            bound, bound_by = card.bound_ms(n, resident_int_ops(products, sums, 3 * (1 + g2)),
+                                            6 * 128 * (1 + g2) * n)
+            by_size[n] = {**t, "bound_ms": bound, "bound_by": bound_by,
+                          "latency_floor_ms": (by_size[1] if n > 1 else t)["ms"], "flush_launches": hist[name].get(n, 0)}
+            r = by_size[n]
+            print(f"[ladder_timing] {name} at {n} elements ({r['flush_launches']} launches a flush): "
+                  f"{r['ms'] * 1e3:.1f} us on the card, {r['wall_ms']:.3f} ms a ladder; the loop of "
+                  f"{t['loop_launches']} K3/K4 launches {t['loop_device_ms'] * 1e3:.1f} us on the card "
+                  f"({t['loop_k3k4_device_ms'] * 1e3:.1f} in K3/K4), {t['loop_wall_ms']:.3f} ms a ladder; bound "
+                  f"{bound * 1e3:.2f} us ({bound_by}; {products} products, {sums} sums), latency floor "
+                  f"{r['latency_floor_ms'] * 1e3:.1f} us, launch floor {floor * 1e3:.3f} us", flush=True)
+        n = sorted(hist[name], key=lambda v: (-hist[name][v], v))[0]
+        pt, _ = lc.ladder_points(n, g2, rng, "cuda", distinct=8)
+        out[name] = {"elements": n, "plain_ms": cuda_ms(lambda: cj.scalar_mul_static_plain(spec["F"], pt, k), reps=2),
+                     "library_ms": None, "floor_ms": floor, "by_size": by_size,
+                     **{key: by_size[n][key] for key in ("ms", "bound_ms", "bound_by", "latency_floor_ms")}}
+    report["ladder_timing"] = out
 
 
 def phase_kernels(report: dict, card: Card, seed: int, k2_rows: int) -> None:
@@ -761,7 +909,7 @@ def bls_phase(report: dict, spec, states: tuple, slots: int, flush_launches) -> 
         print(f"[bls] slot {rec['slot']}: {checks} checks all true, block {block_s:.3f}s, flush {flush_s:.3f}s "
               f"({rec['checks_per_s']:.1f} checks/s{', traced' if rec['traced'] else ''}; stages sum to "
               f"{rec['stage_sum_s']:.3f}s), stages "
-              f"{ {k: round(v, 3) for k, v in rec['stage_s'].items()} }, K3-K6 launches {rec['launches']}, "
+              f"{ {k: round(v, 3) for k, v in rec['stage_s'].items()} }, K3-K8 launches {rec['launches']}, "
               f"{rec['pubkeys_decoded']} pubkeys decoded, oracle agrees on {len(sampled)} rows", flush=True)
     counts = dev.counters()
     launches = {k: sum(r["launches"][k] for r in per_block) for k in fq_cuda.KERNELS}
@@ -778,7 +926,7 @@ def bls_phase(report: dict, spec, states: tuple, slots: int, flush_launches) -> 
         "checks_per_s": sum(r["checks"] for r in timed) / sum(r["flush_s"] for r in timed),
     }
     print(f"[bls] {slots} signed blocks of {n_att[0]} attestations verified on the card; "
-          f"{report['bls']['checks_per_s']:.2f} checks/s over the untraced flushes; K3-K6 launches {launches}; "
+          f"{report['bls']['checks_per_s']:.2f} checks/s over the untraced flushes; K3-K8 launches {launches}; "
           f"card idle {report['bls']['flush_device_idle_share']:.4%} of the traced flush", flush=True)
     return {"launches": {**counts["launches"], **launches}}, hist
 
@@ -846,14 +994,16 @@ def kernel_records(report: dict, main_counts: tuple) -> list:
         ("fq_addsub", "consensus_specs_tpu/ops/fq.py:115", FQ_SOURCE),
         ("fq_pow", POW["fq_pow"]["replaces"], FQ_POW_SOURCE),
         ("fq2_pow", POW["fq2_pow"]["replaces"], FQ_POW_SOURCE),
+        ("g1_mul_static", LADDER_REPLACES, CURVE_SOURCE),
+        ("g2_mul_static", LADDER_REPLACES, CURVE_SOURCE),
         ("add_one", "tools/pallas_probe.py:46", PROBE_SOURCE),
     ):
         if name == "add_one":
             k, launches = report["probe"], report["probe"]["launches"]
         else:
-            if name.startswith("fq"):
-                timing = report["pow_timing" if name in POW else "fq_timing"][name]
-                k = {**timing, "max_abs_err": report["fq_checks"][name]}
+            if name in fq_cuda.KERNELS:
+                timing = report["ladder_timing" if name in LADDER else "pow_timing" if name in POW else "fq_timing"]
+                k = {**timing[name], "max_abs_err": report["fq_checks"][name]}
             else:
                 k = report["kernels"][name]
             launches = sum(c["launches"].get(name, 0) for c in main_counts)
@@ -862,11 +1012,11 @@ def kernel_records(report: dict, main_counts: tuple) -> list:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-            "library_ms": k["library_ms"], **({"elements": k["elements"]} if name.startswith("fq") else {}),
+            "library_ms": k["library_ms"], **({"elements": k["elements"]} if name in fq_cuda.KERNELS else {}),
         }
-        if name in POW:  # K5/K6: the chain's latency floor; K5 also replaces fq.py's inv
+        if name in POW or name in LADDER:  # K5-K8: the chain's or the ladder's latency floor
             rec["latency_floor_ms"] = k["latency_floor_ms"]
-            rec.update({"also_replaces": POW[name]["also_replaces"]} if "also_replaces" in POW[name] else {})
+            rec.update({"also_replaces": POW[name]["also_replaces"]} if "also_replaces" in POW.get(name, {}) else {})
         records.append(rec)
     for name, k in report["fq_timing"].items():
         if k["measurement_only"]:
@@ -902,6 +1052,8 @@ def main() -> int:
     phase_kernels(report, card, args.seed, k2_rows)
     phase_fq_kernels(report, args.seed, [128 * 2 * 18, 16384], "an Fq12 product of 128 Miller loops, a decode")
     phase_pow_kernels(report, args.seed, {name: POW_SIZES for name in POW}, "a flush's 260, a decode's 16,385")
+    phase_ladder_kernels(report, args.seed, {name: LADDER_SIZES for name in LADDER},
+                         "1, a flush's 130 and 260, a decode's 16,385")
 
     print("[calibrate]", json.dumps(dev.use_device_hasher(calibrate=True)), flush=True)
     dev.use_host_hasher()
@@ -929,8 +1081,11 @@ def main() -> int:
     phase_fq_kernels(report, args.seed, sorted(set(hist["fq_mul"]) | set(hist["fq_addsub"])),
                      "every size a flush launched")
     phase_pow_kernels(report, args.seed, {name: sorted(hist[name]) for name in POW}, "every size a flush launched")
+    phase_ladder_kernels(report, args.seed, {name: sorted(hist[name]) for name in LADDER},
+                         "every size a flush launched")
     phase_fq_timing(report, card, args.seed, hist)
     phase_pow_timing(report, card, args.seed, hist)
+    phase_ladder_timing(report, card, args.seed, hist)
     report["total_s"] = time.perf_counter() - t_start
 
     records = kernel_records(report, (root_counts, transition_counts, bls_counts))

@@ -2,6 +2,9 @@
 package's ``ops/curve_jax.py``. Branch-free Jacobian point ops generic over
 the coordinate field (Fq for G1, Fq2 for G2), static-scalar ladders, the
 GLV/untwist endomorphisms and the fast subgroup tests, decompression.
+A static-scalar ladder is one kernel launch on the card (K7
+``g1_mul_static``, K8 ``g2_mul_static``); every other op here is torch
+code on the field kernels.
 
 Representation: Montgomery-form int32 limb tensors (``ops/fq.py``).
   G1 point: (X, Y, Z) each (..., 32)      — Jacobian, Z == 0 <=> infinity
@@ -26,7 +29,7 @@ import torch
 
 from ..crypto.bls import fields as hf
 from ..crypto.bls.curve import g1_generator, g2_generator
-from . import fq, tower
+from . import fq, fq_cuda, fq_plain, tower
 
 X_PARAM = 0xD201000000010000  # |x|; BLS parameter x = -X_PARAM
 R_ORDER = hf.R
@@ -103,6 +106,43 @@ class FQ2:
     @staticmethod
     def where(mask, a, b):
         return torch.where(mask.unsqueeze(-1).unsqueeze(-1), a, b)
+
+
+def _plain_add(a, b):
+    return fq_plain.addsub(a, b, fq_plain.OP_ADD)
+
+
+def _plain_muln(a, n: int):
+    """a * n by doubling and adding over n's bits; the residues are
+    canonical, so this gives ``tower.muln``'s limbs."""
+    r = a
+    for bit in bin(n)[3:]:
+        r = _plain_add(r, r)
+        if bit == "1":
+            r = _plain_add(r, a)
+    return r
+
+
+class FQ_PLAIN(FQ):
+    """``FQ`` on the plain versions of K3/K4 (``fq_plain``), on any device:
+    the adapter of the ladders' plain version, which launches no kernel."""
+
+    mul = staticmethod(fq_plain.mul)
+    square = staticmethod(lambda a: fq_plain.mul(a, a))
+    add = staticmethod(_plain_add)
+    sub = staticmethod(lambda a, b: fq_plain.addsub(a, b, fq_plain.OP_SUB))
+    neg = staticmethod(lambda a: fq_plain.addsub(a, a, fq_plain.OP_NEG))
+    double = staticmethod(lambda a: _plain_add(a, a))
+    muln = staticmethod(_plain_muln)
+
+
+class FQ2_PLAIN(FQ2):
+    """``FQ2`` on the plain versions (``fq_plain``'s Fq2 square and
+    product, as K6 and K8 compute them)."""
+
+    mul = staticmethod(fq_plain.fq2_mul)
+    square = staticmethod(fq_plain.fq2_square)
+    add, sub, neg, double, muln = FQ_PLAIN.add, FQ_PLAIN.sub, FQ_PLAIN.neg, FQ_PLAIN.double, FQ_PLAIN.muln
 
 
 # -- Jacobian point ops (branch-free) ----------------------------------------
@@ -198,9 +238,11 @@ def jac_to_affine(F, pt):
     return (F.where(~inf, ax, torch.zeros_like(ax)), F.where(~inf, ay, torch.zeros_like(ay)), inf)
 
 
-def scalar_mul_static(F, pt, k: int):
-    """[k]pt for a static positive scalar: double-and-add over the bits
-    MSB-first after the leading 1; the addition runs at set bits only."""
+def ladder(F, pt, k: int):
+    """[k]pt for a static positive scalar on the adapter F: double-and-add
+    over the bits MSB-first after the leading 1; the addition runs at set
+    bits only. On ``FQ``/``FQ2`` and a CUDA tensor every field op is a
+    K3/K4 launch (the composition K7/K8 replaced)."""
     assert k > 0
     acc = pt
     for c in bin(k)[3:]:
@@ -208,6 +250,25 @@ def scalar_mul_static(F, pt, k: int):
         if c == "1":
             acc = jac_add(F, acc, pt)
     return acc
+
+
+def scalar_mul_static_plain(F, pt, k: int):
+    """K7/K8's plain version: the ladder on the plain field versions, on
+    any device, with no kernel launch."""
+    return ladder(FQ_PLAIN if F.naxes == 1 else FQ2_PLAIN, pt, k)
+
+
+def scalar_mul_static(F, pt, k: int):
+    """[k]pt for a static positive scalar, ``F`` naming the group (``FQ``:
+    G1, ``FQ2``: G2). On a CUDA tensor one K7 ``g1_mul_static`` or K8
+    ``g2_mul_static`` launch; on a CPU tensor the plain version. Both give
+    the limbs of ``ladder``."""
+    device = pt[0].device
+    if device.type == "cpu":
+        return scalar_mul_static_plain(F, pt, k)
+    if device.type == "cuda":
+        return (fq_cuda.g1_mul_static if F.naxes == 1 else fq_cuda.g2_mul_static)(pt, k)
+    raise ValueError(f"curve: no kernel for device {device}")
 
 
 def jac_tree_sum(F, pts, active):
@@ -453,3 +514,4 @@ def jac_limbs_to_host_point(x, y, z, g2: bool):
     pt = g1_point(hf.Fq(tower.limbs_to_int(xa)), hf.Fq(tower.limbs_to_int(ya)))
     pt.z = hf.Fq(tower.limbs_to_int(za))
     return pt
+

@@ -1,11 +1,13 @@
-"""Bind and launch the hand-written base-field kernels, each a lane-group
+"""Bind and launch the hand-written BLS12-381 kernels, each a lane-group
 kernel (a group of lanes of a warp per element): K3 ``fq_mul`` and K4
-``fq_addsub`` (csrc/fq.cu), and the static-exponent pow chains K5
-``fq_pow`` (Fq) and K6 ``fq2_pow`` (Fq2), one launch a chain
-(csrc/fq_pow.cu).
+``fq_addsub`` (csrc/fq.cu), the static-exponent pow chains K5 ``fq_pow``
+(Fq) and K6 ``fq2_pow`` (Fq2), one launch a chain (csrc/fq_pow.cu), and
+the static scalar ladders K7 ``g1_mul_static`` and K8 ``g2_mul_static``,
+one launch a ladder (csrc/curve.cu).
 
-Each source (with its device header ``csrc/fq.cuh``) is built at first
-launch by ``cuda_build``; nothing is built when the module is imported.
+Each source (with its device headers ``csrc/fq.cuh``, ``csrc/curve.cuh``)
+is built at first launch by ``cuda_build``; nothing is built when the
+module is imported.
 
 Each wrapper takes CUDA int32 tensors of canonical limbs ``(..., 32)``,
 broadcasts them, launches on PyTorch's current stream, raises if the
@@ -15,7 +17,8 @@ curve or tower constant) is read with stride 0, not materialised. There is
 no fallback: a build or launch failure raises. K5/K6 take one operand of
 any shape ``(..., 32)`` or ``(..., 2, 32)`` and the exponent as its bits
 from the most significant; each bit list is packed into words once and
-kept.
+kept. K7/K8 take a Jacobian point ``(X, Y, Z)`` of such tensors (the three
+broadcast to one shape) and the scalar as a Python int.
 
 For measurement only, ``fq_mul_thread``/``fq_addsub_thread`` launch the
 one-thread kernels of the first port; nothing on the main path calls
@@ -29,21 +32,23 @@ from pathlib import Path
 
 import torch
 
-from . import cuda_build
+from . import cuda_build, fq_plain
 
 N_LIMBS = 32
-KERNELS = ("fq_mul", "fq_addsub", "fq_pow", "fq2_pow")  # the main path's
+KERNELS = ("fq_mul", "fq_addsub", "fq_pow", "fq2_pow", "g1_mul_static", "g2_mul_static")  # the main path's
 MEASURED = ("fq_mul_thread", "fq_addsub_thread")
 launches = dict.fromkeys(KERNELS + MEASURED, 0)
 sizes: dict = {k: {} for k in KERNELS + MEASURED}  # elements a launch -> launches
 
 _lib = None
 _pow_lib = None
+_curve_lib = None
 _lock = threading.Lock()
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _WORDS = ctypes.c_uint32 * 12  # an exponent of at most 384 bits
 _exponents: dict = {}  # bits (a tuple) -> (words, length)
+_CURVE_HEADERS = ("fq.cuh", "curve.cuh")
 
 
 def reset_counters() -> None:
@@ -60,6 +65,11 @@ def build(verbose: bool = False) -> Path:
 def build_pow(verbose: bool = False) -> Path:
     """Compile csrc/fq_pow.cu unless it is built already; returns the library."""
     return cuda_build.build("fq_pow.cu", ("fq.cuh",), verbose=verbose)
+
+
+def build_curve(verbose: bool = False) -> Path:
+    """Compile csrc/curve.cu unless it is built already; returns the library."""
+    return cuda_build.build("curve.cu", _CURVE_HEADERS, verbose=verbose)
 
 
 def _load():
@@ -83,6 +93,17 @@ def _load_pow():
             _pow_lib = cuda_build.load("fq_pow.cu", ("fq.cuh",), {"fq_pow_launch": sig, "fq2_pow_launch": sig},
                                        "fq_pow_error_string")
     return _pow_lib
+
+
+def _load_curve():
+    global _curve_lib
+    with _lock:
+        if _curve_lib is None:
+            sig = [_P] * 6 + [_I64, ctypes.POINTER(ctypes.c_uint32), ctypes.c_int, _P]
+            _curve_lib = cuda_build.load("curve.cu", _CURVE_HEADERS,
+                                         {"g1_mul_static_launch": sig, "g2_mul_static_launch": sig},
+                                         "curve_error_string")
+    return _curve_lib
 
 
 def _broadcast_shape(a: torch.Size, b: torch.Size) -> tuple:
@@ -201,6 +222,53 @@ def fq_pow(a: torch.Tensor, exp_bits) -> torch.Tensor:
 def fq2_pow(a: torch.Tensor, exp_bits) -> torch.Tensor:
     """K6: a^e in Fq2 (``(..., 2, 32)``, u^2 = -1), one launch for the chain."""
     return _pow("fq2_pow", a, exp_bits, 2)
+
+
+def _mul_static(name: str, pt, k: int, degree: int) -> tuple:
+    tail = (N_LIMBS,) if degree == 1 else (2, N_LIMBS)
+    for t in pt:
+        if t.device.type != "cuda":
+            raise ValueError(f"{name}: expected CUDA tensors, got one on {t.device}")
+        if t.dtype != torch.int32 or tuple(t.shape[-degree:]) != tail:
+            raise ValueError(f"{name}: expected int32 (..., {', '.join(map(str, tail))}), "
+                             f"got {t.dtype} {tuple(t.shape)}")
+    if len({t.device for t in pt}) != 1:
+        raise ValueError(f"{name}: coordinates on {[str(t.device) for t in pt]}")
+    if not 0 < k < 1 << 384:
+        raise ValueError(f"{name}: expected a scalar 0 < k < 2^384, got {k}")
+    x, y, z = pt
+    shape = _broadcast_shape(_broadcast_shape(x.shape, y.shape), z.shape)
+    ins = []
+    for t in pt:
+        t = t.expand(shape).contiguous()
+        ins.append(t.clone() if t.data_ptr() % 16 else t)
+    outs = tuple(torch.empty(shape, dtype=torch.int32, device=x.device) for _ in range(3))
+    n = outs[0].numel() // (degree * N_LIMBS)
+    if n == 0:
+        return outs
+    words, length = _exponent(fq_plain.bits_msb(k))
+    lib = _load_curve()
+    fn = getattr(lib, f"{name}_launch")
+    with torch.cuda.device(x.device):
+        rc = fn(*(t.data_ptr() for t in ins + list(outs)), n, words, length,
+                torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: {lib.curve_error_string(rc).decode()}")
+    launches[name] += 1
+    sizes[name][n] = sizes[name].get(n, 0) + 1
+    return outs
+
+
+def g1_mul_static(pt, k: int) -> tuple:
+    """K7: [k] P for Jacobian G1 points ``(X, Y, Z)``, each ``(..., 32)``,
+    and a public scalar k > 0, one launch for the ladder (the formulas of
+    ``curve_torch.ladder``, so the same limbs)."""
+    return _mul_static("g1_mul_static", pt, k, 1)
+
+
+def g2_mul_static(pt, k: int) -> tuple:
+    """K8: the same on G2, each coordinate ``(..., 2, 32)``."""
+    return _mul_static("g2_mul_static", pt, k, 2)
 
 
 def _check_op(name: str, op: int) -> None:

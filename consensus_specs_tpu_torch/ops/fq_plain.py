@@ -178,7 +178,7 @@ def pow_bits(a: torch.Tensor, bits) -> torch.Tensor:
     return r
 
 
-def _fq2_square(a: torch.Tensor) -> torch.Tensor:
+def fq2_square(a: torch.Tensor) -> torch.Tensor:
     """(a0 + a1 u)^2 = (a0 + a1)(a0 - a1) + 2 a0 a1 u, as K6 computes it."""
     a0, a1 = a[..., 0, :], a[..., 1, :]
     s = addsub(torch.stack([a0, a0]), torch.stack([a1, a0]), OP_ADD)  # a0 + a1, 2 a0
@@ -186,7 +186,7 @@ def _fq2_square(a: torch.Tensor) -> torch.Tensor:
     return mul(s, torch.stack([d, a1])).movedim(0, -2)
 
 
-def _fq2_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def fq2_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Karatsuba, as K6 computes it: t0 = a0 b0, t1 = a1 b1,
     t2 = (a0 + a1)(b0 + b1); c0 = t0 - t1, c1 = t2 - t0 - t1."""
     a0, a1, b0, b1 = a[..., 0, :], a[..., 1, :], b[..., 0, :], b[..., 1, :]
@@ -202,9 +202,9 @@ def fq2_pow_bits(a: torch.Tensor, bits) -> torch.Tensor:
     c = _consts(a.device)
     r = torch.stack([c["one"], torch.zeros_like(c["one"])]).expand(a.shape)
     for bit in bits:
-        r = _fq2_square(r)
+        r = fq2_square(r)
         if bit:
-            r = _fq2_mul(r, a)
+            r = fq2_mul(r, a)
     return r
 
 

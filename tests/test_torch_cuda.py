@@ -1,5 +1,6 @@
 """The port's kernels on the card — SHA-256 (K1/K2), the base field
-(K3 fq_mul, K4 fq_addsub), the pow chains (K5 fq_pow, K6 fq2_pow) and the
+(K3 fq_mul, K4 fq_addsub), the pow chains (K5 fq_pow, K6 fq2_pow), the
+static scalar ladders (K7 g1_mul_static, K8 g2_mul_static) and the
 liveness probe — held against their
 plain PyTorch versions, hashlib and Python integers, and the Verify
 family on the card (scalar and batched) against the host oracle. These need
@@ -16,6 +17,8 @@ import torch
 from consensus_specs_tpu_torch import probe
 from consensus_specs_tpu_torch.crypto.bls import ciphersuite as host
 from consensus_specs_tpu_torch.ops import bls_torch, fq, fq_cuda, fq_plain, tower
+from consensus_specs_tpu_torch.ops import curve_torch as cj
+from consensus_specs_tpu_torch.ops import ladder_checks as lc
 from consensus_specs_tpu_torch.ops import sha256 as tdev
 from consensus_specs_tpu_torch.ops import sha256_cuda, sha256_plain
 
@@ -172,6 +175,45 @@ def test_seams_take_the_pow_kernels_on_the_card(card):
     assert fq_cuda.launches["fq_pow"] == before["fq_pow"] + 1 and fq_cuda.launches["fq2_pow"] == before["fq2_pow"] + 1
     assert fq_cuda.launches["fq_mul"] == before["fq_mul"] and fq_cuda.launches["fq_addsub"] == before["fq_addsub"]
     assert torch.equal(x.cpu(), fq.inv(a)) and torch.equal(y.cpu(), tower.fq2_pow_bits(a2, bits))
+
+
+_LADDER = {False: ("g1_mul_static", cj.FQ), True: ("g2_mul_static", cj.FQ2)}
+K_RANDOM = 0x2B3C4D5E6F708192
+
+
+@pytest.mark.parametrize("k", [cj.X_PARAM, K_RANDOM], ids=["x", "random"])
+@pytest.mark.parametrize("n", [1, 130, 16385])
+@pytest.mark.parametrize("g2", [False, True], ids=["g1", "g2"])
+def test_ladder_kernels_match_plain_version(card, g2, n, k):
+    """K7/K8: one launch a ladder and no K3/K4 launch, bit-exact against
+    the plain version on the card, the points of a sample and of every edge
+    row equal to the host oracle's."""
+    name, F = _LADDER[g2]
+    pt, hosts = lc.ladder_points(n, g2, np.random.default_rng([n, g2]), card)
+    before = dict(fq_cuda.launches)
+    got = cj.scalar_mul_static(F, pt, k)
+    torch.cuda.synchronize()
+    assert fq_cuda.launches[name] == before[name] + 1
+    assert all(fq_cuda.launches[m] == before[m] for m in fq_cuda.KERNELS if m != name)
+    want = cj.scalar_mul_static_plain(F, pt, k)
+    assert all(fq_cuda.launches[m] == before[m] + (m == name) for m in fq_cuda.KERNELS)  # the plain run launches none
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    edges = len(lc.ladder_edges(g2)) if n >= 16 else 0
+    sample = sorted(set(range(0, n, max(1, n // 16))) | set(range(n - edges, n)))
+    assert lc.limbs_to_ints(got, g2, sample) == [lc.point_ints(hosts[i].mul(k)) for i in sample]
+
+
+def test_subgroup_masks_on_the_card(card):
+    """The G1/G2 subgroup tests, each a K7/K8 ladder on the card, decide
+    valid and off-subgroup points as on the CPU."""
+    for g2, mask in ((False, cj.g1_subgroup_mask), (True, cj.g2_subgroup_mask)):
+        pt, hosts = lc.ladder_points(20, g2, np.random.default_rng(11), "cpu", distinct=4)
+        name = _LADDER[g2][0]
+        before = fq_cuda.launches[name]
+        got = mask(tuple(t.to(card) for t in pt))
+        assert fq_cuda.launches[name] == before + (2 if not g2 else 1)
+        assert got.tolist() == mask(pt).tolist() == [h.in_subgroup() for h in hosts]
 
 
 def test_probe_kernel(card):

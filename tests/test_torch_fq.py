@@ -124,26 +124,10 @@ def test_wrappers_dispatch_cpu_tensors_to_the_plain_versions():
         tower.fq2_pow_bits(a.view(2, 2, 32).to("meta"), [1, 1])
 
 
-_HOST_SRC = r"""
-#include "fq.cuh"
-extern "C" void host_fq(const int32_t* a, const int32_t* b, int32_t* out, long n, int op) {
-  for (long i = 0; i < n; ++i) {
-    uint32_t la[32], lb[32], x[12], y[12], r[12], lo[32];
-    for (int k = 0; k < 32; ++k) { la[k] = (uint32_t)a[32 * i + k]; lb[k] = (uint32_t)b[32 * i + k]; }
-    fq::pack(x, la);
-    fq::pack(y, lb);
-    if (op == 3) fq::mont_mul(r, x, y);
-    else if (op == 4) for (int k = 0; k < 12; ++k) r[k] = x[k];  // repack round trip
-    else if (op == 0) fq::add_mod(r, x, y);
-    else { uint32_t z[12] = {0}; fq::sub_mod(r, op == 2 ? z : x, y); }
-    fq::unpack(lo, r);
-    for (int k = 0; k < 32; ++k) out[32 * i + k] = (int32_t)lo[k];
-  }
-}
-
-// the lane-group bodies, G lanes an element; lane l's digits D l + k are
-// limbs 2 (D l + k) and 2 (D l + k) + 1, as fq.cuh's load_digits and
-// store_digits move them
+# the lane-group bodies' loads and stores, G lanes an element; lane l's
+# digits D l + k are limbs 2 (D l + k) and 2 (D l + k) + 1, as fq.cuh's
+# load_digits and store_digits move them (shared with the ladder test)
+HOST_DIGITS_SRC = r"""
 template <int G>
 void host_load(fq::lanes::Lanes<uint32_t, G> x[fq::lanes::kDigits / G], const int32_t* src) {
   constexpr int D = fq::lanes::kDigits / G;
@@ -164,7 +148,25 @@ void host_store(int32_t* dst, const fq::lanes::Lanes<uint32_t, G> r[fq::lanes::k
       dst[j + 1] = (int32_t)(r[k].v[l] >> 12);
     }
 }
+"""
 
+_HOST_SRC = r"""
+#include "fq.cuh"
+extern "C" void host_fq(const int32_t* a, const int32_t* b, int32_t* out, long n, int op) {
+  for (long i = 0; i < n; ++i) {
+    uint32_t la[32], lb[32], x[12], y[12], r[12], lo[32];
+    for (int k = 0; k < 32; ++k) { la[k] = (uint32_t)a[32 * i + k]; lb[k] = (uint32_t)b[32 * i + k]; }
+    fq::pack(x, la);
+    fq::pack(y, lb);
+    if (op == 3) fq::mont_mul(r, x, y);
+    else if (op == 4) for (int k = 0; k < 12; ++k) r[k] = x[k];  // repack round trip
+    else if (op == 0) fq::add_mod(r, x, y);
+    else { uint32_t z[12] = {0}; fq::sub_mod(r, op == 2 ? z : x, y); }
+    fq::unpack(lo, r);
+    for (int k = 0; k < 32; ++k) out[32 * i + k] = (int32_t)lo[k];
+  }
+}
+""" + HOST_DIGITS_SRC + r"""
 template <int G>
 void host_lanes(const int32_t* a, const int32_t* b, int32_t* out, long n, int op) {
   constexpr int D = fq::lanes::kDigits / G;
@@ -209,17 +211,23 @@ extern "C" long host_fq_pow_lanes(const int32_t* a, int32_t* out, long n, int de
 """
 
 
-@pytest.fixture(scope="module")
-def host_kernel_lib(tmp_path_factory):
+def build_host_lib(tmp_path_factory, name: str, src: str):
+    """``src`` built with the host C++ compiler against csrc/ and loaded;
+    skips where there is no compiler."""
     cxx = shutil.which("c++") or shutil.which("g++")
     if cxx is None:
-        pytest.skip("no host C++ compiler to build csrc/fq.cuh with")
-    d = tmp_path_factory.mktemp("fq_host")
-    (d / "host_fq.cpp").write_text(_HOST_SRC)
-    lib = d / "libhostfq.so"
+        pytest.skip(f"no host C++ compiler to build {name} with")
+    d = tmp_path_factory.mktemp(name)
+    (d / f"{name}.cpp").write_text(src)
+    lib = d / f"lib{name}.so"
     subprocess.run([cxx, "-O1", "-std=c++17", "-shared", "-fPIC", "-Wno-unknown-pragmas",
-                    f"-I{cuda_build.CSRC}", "-o", str(lib), str(d / "host_fq.cpp")], check=True)
-    handle = ctypes.CDLL(str(lib))
+                    f"-I{cuda_build.CSRC}", "-o", str(lib), str(d / f"{name}.cpp")], check=True)
+    return ctypes.CDLL(str(lib))
+
+
+@pytest.fixture(scope="module")
+def host_kernel_lib(tmp_path_factory):
+    handle = build_host_lib(tmp_path_factory, "host_fq", _HOST_SRC)
     handle.host_fq.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_long, ctypes.c_int]
     handle.host_fq_lanes.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_long, ctypes.c_int, ctypes.c_int]
     handle.host_fq_lanes.restype = ctypes.c_long

@@ -43,7 +43,7 @@ def test_importing_the_port_loads_neither():
         "import consensus_specs_tpu_torch, consensus_specs_tpu_torch.harness, consensus_specs_tpu_torch.interop\n"
         "from consensus_specs_tpu_torch.ops import sha256, sha256_cuda, sha256_plain\n"
         "from consensus_specs_tpu_torch.ops import fq, fq_cuda, fq_plain, tower, curve_torch, h2c_torch\n"
-        "from consensus_specs_tpu_torch.ops import pairing_torch, bls_torch\n"
+        "from consensus_specs_tpu_torch.ops import pairing_torch, bls_torch, ladder_checks\n"
         "from consensus_specs_tpu_torch import probe, sched\n"
         "from consensus_specs_tpu_torch.crypto import bls\n"
         "bls.use_backend('torch', device='cpu')\n"
@@ -53,7 +53,8 @@ def test_importing_the_port_loads_neither():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in {'jax', 'jaxlib', 'consensus_specs_tpu'})\n"
         "assert not bad, bad\n"
         "assert sha256_cuda._lib is None  # nothing built at import\n"
-        "assert fq_cuda._lib is None and fq_cuda._pow_lib is None and probe._lib is None\n"
+        "assert fq_cuda._lib is None and fq_cuda._pow_lib is None and fq_cuda._curve_lib is None\n"
+        "assert probe._lib is None\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=PACKAGE.parent, capture_output=True, text=True,
                           timeout=120)
@@ -99,6 +100,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         fq_cuda.fq_pow(x, [1, 0, 1])
     with pytest.raises(ValueError, match="CUDA tensor"):
         fq_cuda.fq2_pow(x.view(1, 2, 32), [1, 0, 1])
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fq_cuda.g1_mul_static((x, x, x), 5)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fq_cuda.g2_mul_static((x.view(1, 2, 32),) * 3, 5)
     assert fq_cuda.launches == before
     # the probe's wrapper takes its plain version for a CPU tensor, and counts no launch
     assert torch.equal(probe.add_one(x), x + 1) and probe.launches["add_one"] == 0
