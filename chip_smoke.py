@@ -407,15 +407,25 @@ def resident_int_ops(products: int, sums: int, elements: int) -> int:
 
 
 def chain_work(name: str, e: int) -> tuple:
-    """(Montgomery products, field sums, products one after another) of one
-    element's chain: a square at every bit and a product at every set bit;
-    in Fq2 a square is 2 products and 3 sums, a product (Karatsuba) 3 and 5,
-    and the products of one square or one product do not wait on each
-    other, so the chain is as deep as in Fq."""
+    """(Montgomery products, field sums, serial, rounds) of one element's
+    chain, as fq.cuh computes it. K5: a square at every bit and a product
+    at every set bit, each its own round. K6: the 4-bit window (fq2_pow):
+    14 Fq2 products for the table, then 4 squares for each nibble below
+    the top one and a product at each nonzero one, each square or product
+    one batched round. The bound counts an Fq2 square as 2 Fq products and
+    3 sums, an Fq2 product at Karatsuba's 3 and 5, the least the function
+    needs (the kernel takes 4 and 2). serial: the Fq products one after
+    another on the bit-serial walk, as K5 runs them and K6 ran them before
+    its batches. At (p - 1) / 2: K6 1,064 products, 1,648 sums, 1,447
+    serial, 480 rounds; K5 609 products, 609 serial and rounds."""
     bits, ones = e.bit_length(), bin(e).count("1")
     if name == "fq_pow":
-        return bits + ones, 0, bits + ones
-    return 2 * bits + 3 * ones, 3 * bits + 5 * ones, bits + ones
+        return bits + ones, 0, bits + ones, bits + ones
+    nibbles = (bits + 3) // 4
+    nonzero = sum(1 for i in range(nibbles - 1) if (e >> 4 * i) & 15)
+    squares, products = 4 * (nibbles - 1), 14 + nonzero
+    return (2 * squares + 3 * products, 3 * squares + 5 * products, 2 * bits + 3 * ones,
+            squares + products)
 
 
 def loop_chain(name: str, a: torch.Tensor, bits: list) -> torch.Tensor:
@@ -523,16 +533,21 @@ def phase_pow_timing(report: dict, card: "Card", seed: int, hist: dict) -> None:
     elements -> launches), each in turns with the loop of K3/K4 launches it
     replaced, beside its bounds: operations (``resident_int_ops`` of the
     chain's products and sums, times n), bytes (each element read and
-    written once), the launch floor, and the latency floor (the chain's
-    depth in products x one product's latency, read from K5 at 1 element).
-    Each kernel's record is taken at its most frequent size."""
+    written once), the launch floor, and a latency estimate: the chain's
+    depth in batched product rounds x one product's latency, read from K5
+    at 1 element. For K5 that is its own time at 1 element, a floor for it
+    at larger n as K7/K8's is; for K6 it is an estimate only, since K6's
+    round (a batch of sums and products on two subgroups, then a shuffle)
+    is not K5's lone product, and nothing shows it takes at least as long.
+    Each kernel's record is taken at its most frequent size, with its time
+    per round."""
     rng = np.random.default_rng([seed, 7])
     floor = report["probe"]["ms"]
     out, product_ms = {}, None
     for name, k in POW.items():
         e = fq_plain.EXPONENTS[k["timed"]]
         bits = fq_plain.bits_msb(e)
-        products, sums, depth = chain_work(name, e)
+        products, sums, serial, depth = chain_work(name, e)
         top = sorted(hist[name], key=lambda n: (-hist[name][n], n))
         by_size = {}
         for n in dict.fromkeys([1] + sorted(hist[name])):
@@ -543,19 +558,22 @@ def phase_pow_timing(report: dict, card: "Card", seed: int, hist: dict) -> None:
                 product_ms = t["ms"] / depth
             bound, bound_by = card.bound_ms(n, resident_int_ops(products, sums, k["degree"]),
                                             2 * 128 * k["degree"] * n)
-            by_size[n] = {**t, "bound_ms": bound, "bound_by": bound_by, "latency_floor_ms": depth * product_ms,
-                          "flush_launches": hist[name].get(n, 0)}
+            by_size[n] = {**t, "bound_ms": bound, "bound_by": bound_by, "latency_estimate_ms": depth * product_ms,
+                          "flush_launches": hist[name].get(n, 0), "serial": serial, "rounds": depth,
+                          "us_per_round": t["ms"] * 1e3 / depth}
             print(f"[pow_timing] {name} at {n} elements ({hist[name].get(n, 0)} launches a flush, {k['timed']}): "
                   f"{t['ms'] * 1e3:.1f} us on the card, {t['wall_ms']:.3f} ms a chain; the loop of "
                   f"{t['loop_launches']} K3/K4 launches {t['loop_device_ms'] * 1e3:.1f} us on the card "
                   f"({t['loop_k3k4_device_ms'] * 1e3:.1f} in K3/K4), {t['loop_wall_ms']:.3f} ms a chain; bound "
-                  f"{bound * 1e3:.2f} us ({bound_by}), latency floor {depth * product_ms * 1e3:.1f} us "
-                  f"({products} products, {depth} deep), launch floor {floor * 1e3:.3f} us", flush=True)
+                  f"{bound * 1e3:.2f} us ({bound_by}), latency estimate {depth * product_ms * 1e3:.1f} us "
+                  f"({products} products, {serial} serial, {depth} batched rounds: "
+                  f"{t['ms'] * 1e3 / depth:.3f} us a round), launch floor {floor * 1e3:.3f} us", flush=True)
         n = top[0]
         a, _ = pow_operand(n, k["degree"], rng, edges=False)
         out[name] = {"elements": n, "exponent": k["timed"], "plain_ms": cuda_ms(lambda: k["plain"](a, bits), reps=2),
                      "library_ms": None, "floor_ms": floor, "by_size": by_size,
-                     **{key: by_size[n][key] for key in ("ms", "bound_ms", "bound_by", "latency_floor_ms")}}
+                     **{key: by_size[n][key] for key in ("ms", "bound_ms", "bound_by", "latency_estimate_ms",
+                                                         "serial", "rounds", "us_per_round")}}
     report["pow_timing"] = out
 
 
@@ -570,23 +588,31 @@ LADDER_SIZES = [1, 130, 260, 16385]  # one point, a flush's 130 and 2 x 130 rows
 
 
 def ladder_work(g2: bool, k: int) -> tuple:
-    """(Fq products, Fq sums) of one element's ladder by k as curve.cuh
-    computes it: a doubling is 5 squares, 2 products and 14 sums of the
-    coordinate field, an addition 5 squares, 11 products and 13 sums and a
-    doubling; in Fq2 a square is 2 Fq products and 3 sums, a product 3 and
-    5, a sum 2. For k = |x|: 556 products and 1,017 sums on G1, 1,303 and
-    4,084 on G2. With ``resident_int_ops`` (the point's 3 or 6 Fq elements
-    repacked once): 556 x 1,764 + 1,017 x 60 + 3 x 104 = 1,042,116 integer
-    operations a G1 point, 1,303 x 1,764 + 4,084 x 60 + 6 x 104 = 2,544,156
-    a G2 point."""
+    """(Fq products, Fq sums, serial, rounds) of one element's ladder by k
+    as curve.cuh computes it: the base point prepared once (1 square, 1
+    product, 2 sums of the coordinate field; 2 rounds), a doubling 4
+    squares, 3 products and 11 sums (3 rounds), an addition 3 squares, 11
+    products and 8 sums (5 rounds; its doubling case is taken on no
+    subgroup point). In Fq2 a square is 2 Fq products and 3 sums, a product
+    Karatsuba's 3 and 5 (the least the function needs; the kernel takes 4
+    and 2), a sum 2. For k = |x|: 513 products and 735 sums on G1, 1,271
+    and 3,499 on G2, 216 rounds on either. With ``resident_int_ops`` (the
+    point's 3 or 6 Fq elements repacked once): 513 x 1,764 + 735 x 60 + 3 x
+    104 = 949,344 integer operations a G1 point, 1,271 x 1,764 + 3,499 x 60
+    + 6 x 104 = 2,452,608 a G2 point. serial: the Fq products one after
+    another as the ladders ran before their level schedules (a doubling 5
+    squares and 2 products, an addition 5 and 11 and a doubling: 556 on G1,
+    1,303 on G2 for |x|)."""
     doublings, additions = k.bit_length() - 1, bin(k).count("1") - 1
     (sq_p, sq_s), (mul_p, mul_s), add_s = ((2, 3), (3, 5), 2) if g2 else ((1, 0), (1, 0), 1)
 
     def cost(squares: int, products: int, sums: int) -> tuple:
         return squares * sq_p + products * mul_p, squares * sq_s + products * mul_s + sums * add_s
 
-    (dbl_p, dbl_s), (add_p, add_ss) = cost(5, 2, 14), cost(5, 11, 13)
-    return (doublings + additions) * dbl_p + additions * add_p, (doublings + additions) * dbl_s + additions * add_ss
+    (prep_p, prep_s), (dbl_p, dbl_s), (add_p, add_ss) = cost(1, 1, 2), cost(4, 3, 11), cost(3, 11, 8)
+    serial = (doublings + additions) * cost(5, 2, 0)[0] + additions * cost(5, 11, 0)[0]
+    return (prep_p + doublings * dbl_p + additions * add_p, prep_s + doublings * dbl_s + additions * add_ss,
+            serial, 2 + 3 * doublings + 5 * additions)
 
 
 def phase_ladder_kernels(report: dict, seed: int, sizes: dict, label: str) -> None:
@@ -642,7 +668,7 @@ def phase_ladder_timing(report: dict, card: "Card", seed: int, hist: dict) -> No
     out = {}
     for name, spec in LADDER.items():
         g2 = spec["g2"]
-        products, sums = ladder_work(g2, k)
+        products, sums, serial, rounds = ladder_work(g2, k)
         by_size = {}
         for n in dict.fromkeys([1] + sorted(hist[name])):
             pt, _ = lc.ladder_points(n, g2, rng, "cuda", distinct=8)
@@ -651,19 +677,23 @@ def phase_ladder_timing(report: dict, card: "Card", seed: int, hist: dict) -> No
             bound, bound_by = card.bound_ms(n, resident_int_ops(products, sums, 3 * (1 + g2)),
                                             6 * 128 * (1 + g2) * n)
             by_size[n] = {**t, "bound_ms": bound, "bound_by": bound_by,
-                          "latency_floor_ms": (by_size[1] if n > 1 else t)["ms"], "flush_launches": hist[name].get(n, 0)}
+                          "latency_floor_ms": (by_size[1] if n > 1 else t)["ms"],
+                          "flush_launches": hist[name].get(n, 0), "serial": serial, "rounds": rounds,
+                          "us_per_round": t["ms"] * 1e3 / rounds}
             r = by_size[n]
             print(f"[ladder_timing] {name} at {n} elements ({r['flush_launches']} launches a flush): "
                   f"{r['ms'] * 1e3:.1f} us on the card, {r['wall_ms']:.3f} ms a ladder; the loop of "
                   f"{t['loop_launches']} K3/K4 launches {t['loop_device_ms'] * 1e3:.1f} us on the card "
                   f"({t['loop_k3k4_device_ms'] * 1e3:.1f} in K3/K4), {t['loop_wall_ms']:.3f} ms a ladder; bound "
-                  f"{bound * 1e3:.2f} us ({bound_by}; {products} products, {sums} sums), latency floor "
+                  f"{bound * 1e3:.2f} us ({bound_by}; {products} products, {sums} sums; {serial} serial, {rounds} "
+                  f"batched rounds: {r['us_per_round']:.3f} us a round), latency floor "
                   f"{r['latency_floor_ms'] * 1e3:.1f} us, launch floor {floor * 1e3:.3f} us", flush=True)
         n = sorted(hist[name], key=lambda v: (-hist[name][v], v))[0]
         pt, _ = lc.ladder_points(n, g2, rng, "cuda", distinct=8)
         out[name] = {"elements": n, "plain_ms": cuda_ms(lambda: cj.scalar_mul_static_plain(spec["F"], pt, k), reps=2),
                      "library_ms": None, "floor_ms": floor, "by_size": by_size,
-                     **{key: by_size[n][key] for key in ("ms", "bound_ms", "bound_by", "latency_floor_ms")}}
+                     **{key: by_size[n][key] for key in ("ms", "bound_ms", "bound_by", "latency_floor_ms", "serial",
+                                                         "rounds", "us_per_round")}}
     report["ladder_timing"] = out
 
 
@@ -1014,8 +1044,10 @@ def kernel_records(report: dict, main_counts: tuple) -> list:
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k["library_ms"], **({"elements": k["elements"]} if name in fq_cuda.KERNELS else {}),
         }
-        if name in POW or name in LADDER:  # K5-K8: the chain's or the ladder's latency floor
+        if name in LADDER:  # K7/K8: the ladder's latency floor; K5/K6: the chain's latency estimate
             rec["latency_floor_ms"] = k["latency_floor_ms"]
+        if name in POW:
+            rec["latency_estimate_ms"] = k["latency_estimate_ms"]
             rec.update({"also_replaces": POW[name]["also_replaces"]} if "also_replaces" in POW.get(name, {}) else {})
         records.append(rec)
     for name, k in report["fq_timing"].items():

@@ -13,12 +13,12 @@
 // and G2 subgroup checks, hash-to-G2's cofactor clearing).
 //
 // What bounds them on this card:
-// - at a flush's G2 sizes (130-260 elements) latency: a ladder is one
-//   dependent sequence of Montgomery products on one lane group (G1:
-//   63 x 7 + 5 x 23 = 556; G2: 63 x 16 + 5 x 59 = 1,303, an Fq2 square
-//   being 2 products and an Fq2 product 3, run one after another), each a
-//   16-row chain of shuffles and multiply-adds: a few warps on a few SMs,
-//   the rest of the card idle;
+// - at a flush's G2 sizes (130-260 elements) latency: a few warps on a few
+//   SMs, the rest of the card idle, so a ladder takes the time of its
+//   longest dependent sequence of Montgomery products, each a 16-row chain
+//   of two dependent exchanges a row. Run one after another, as the first
+//   form of these ladders did, that was 556 products on G1 and 1,303 on G2
+//   (an Fq2 square 2 products and an Fq2 product 3);
 // - at a pubkey decode's 16,385 G1 elements, integer throughput: 556
 //   products and 1,022 sums an element over all 132 SMs.
 // Bytes are no bound: an element is read once and written once (768 or
@@ -26,16 +26,22 @@
 //
 // The design: each element's base point and accumulator stay in a lane
 // group's registers from the first bit to the last, as fq.cuh's fq::lanes
-// digits (the mont_mul, addsub, fq2_mul and fq2_square of the pow chains),
-// so a ladder is one launch and touches device memory only at its ends.
-// K7 runs on groups of 4 lanes (K3's, 128 registers, no spills). K8 holds
-// twice the digits, and on 4 lanes it needed all 255 registers and
-// spilled; on groups of 8 it took 1.28 ms a ladder at 130 points on an
-// H100 against 2.68 ms on 4, timed in turns (PERF.md), so K8 runs on 8.
-// curve.cuh holds the point arithmetic; the special cases of the addition are selects on masks that
-// are the same on every lane of a group, and the branch on a bit of k is
-// uniform. Lanes past the last element run the group code on zeros (the
-// point at infinity) and store nothing.
+// digits, so a ladder is one launch and touches device memory only at its
+// ends. curve.cuh runs the doubling and the addition as level schedules:
+// each level's independent field products are one batch (fq.cuh
+// mont_mul_n, their rows interleaved), each level's independent sums one
+// batch of carry rounds, the sums that feed only products lazy. A doubling
+// is 3 batched rounds, an addition 5 (the base point's Z^2, 2 Z^3 and 2 Y
+// made once a ladder), so by |x| a ladder is 216 rounds deep on either
+// curve. At a flush's 130 points one warp's issue rate bounds a batch, so
+// K8 spreads a point over a whole warp: groups of 16 lanes (one digit a
+// lane), two of them holding the same point, each running half of every
+// batch's products (mont_mul_split). K7, at a decode's 16,385 points, is
+// bound by the card's integer rate and stays on groups of 4 lanes (K3's).
+// The special cases of the addition are selects on masks that are the
+// same on every lane of a group, and the branch on a bit of k is uniform.
+// Lanes past the last element run the group code on zeros (the point at
+// infinity) and store nothing.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -45,32 +51,35 @@
 namespace {
 
 constexpr int kG1Lanes = 4;    // K7's group
-constexpr int kG2Lanes = 8;    // K8's group
+constexpr int kG2Lanes = 16;   // K8's group: one digit a lane
+constexpr int kG2Subgroups = 2;  // K8's point on 2 groups of a warp, each running half of a batch's products
 constexpr int kThreads = 128;  // a block, as K5/K6
 
 // one coordinate: N halves of 32 limbs
-template <int G, int N>
-__device__ __forceinline__ void load(typename curve::Field<G, N>::E& r, const int32_t* src, int l) {
+template <int G, int N, class E>
+__device__ __forceinline__ void load(E& r, const int32_t* src, int l) {
 #pragma unroll
   for (int n = 0; n < N; ++n) fq::lanes::load_digits<G>(r.c[n], src + n * fq::kLimbs, l);
 }
 
-template <int G, int N>
-__device__ __forceinline__ void store(int32_t* dst, const typename curve::Field<G, N>::E& r, int l) {
+template <int G, int N, class E>
+__device__ __forceinline__ void store(int32_t* dst, const E& r, int l) {
 #pragma unroll
   for (int n = 0; n < N; ++n) fq::lanes::store_digits<G>(dst + n * fq::kLimbs, r.c[n], l);
 }
 
-// the ladder of the element of this thread's group of G lanes
-template <int G, int N>
+// the ladder of the element of this thread's S groups of G lanes (each
+// loads the point; the first stores the result)
+template <int G, int N, int S>
 __device__ __forceinline__ void ladder(const int32_t* __restrict__ x, const int32_t* __restrict__ y,
                                        const int32_t* __restrict__ z, int32_t* __restrict__ ox,
                                        int32_t* __restrict__ oy, int32_t* __restrict__ oz, int64_t n,
                                        const fq::lanes::Exponent& k) {
-  using F = curve::Field<G, N>;
+  using F = curve::Field<G, N, S>;
   constexpr int64_t kStride = N * fq::kLimbs;
-  const int64_t i = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) / G;
+  const int64_t i = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) / (G * S);
   const int l = (int)(threadIdx.x % G);
+  const bool first = (threadIdx.x / G) % S == 0;
   curve::Jac<F> p = {}, r;
   if (i < n) {
     load<G, N>(p.x, x + i * kStride, l);
@@ -78,23 +87,23 @@ __device__ __forceinline__ void ladder(const int32_t* __restrict__ x, const int3
     load<G, N>(p.z, z + i * kStride, l);
   }
   curve::mul_static<F>(r, p, k);
-  if (i < n) {
+  if (i < n && first) {
     store<G, N>(ox + i * kStride, r.x, l);
     store<G, N>(oy + i * kStride, r.y, l);
     store<G, N>(oz + i * kStride, r.z, l);
   }
 }
 
-#define CURVE_KERNEL(name, G, N)                                                                                  \
+#define CURVE_KERNEL(name, G, N, S)                                                                               \
   __global__ void __launch_bounds__(kThreads)                                                                     \
       name(const int32_t* __restrict__ x, const int32_t* __restrict__ y, const int32_t* __restrict__ z,          \
            int32_t* __restrict__ ox, int32_t* __restrict__ oy, int32_t* __restrict__ oz, int64_t n,              \
            fq::lanes::Exponent k) {                                                                               \
-    ladder<G, N>(x, y, z, ox, oy, oz, n, k);                                                                      \
+    ladder<G, N, S>(x, y, z, ox, oy, oz, n, k);                                                                   \
   }
 
-CURVE_KERNEL(g1_mul_static_kernel, kG1Lanes, 1)
-CURVE_KERNEL(g2_mul_static_kernel, kG2Lanes, 2)
+CURVE_KERNEL(g1_mul_static_kernel, kG1Lanes, 1, 1)
+CURVE_KERNEL(g2_mul_static_kernel, kG2Lanes, 2, kG2Subgroups)
 
 using Kernel = void (*)(const int32_t*, const int32_t*, const int32_t*, int32_t*, int32_t*, int32_t*, int64_t,
                         fq::lanes::Exponent);
@@ -124,7 +133,7 @@ int g1_mul_static_launch(const void* x, const void* y, const void* z, void* ox, 
 
 int g2_mul_static_launch(const void* x, const void* y, const void* z, void* ox, void* oy, void* oz, int64_t n,
                          const uint32_t* words, int bits, void* stream) {
-  return launch(g2_mul_static_kernel, kG2Lanes, x, y, z, ox, oy, oz, n, words, bits, stream);
+  return launch(g2_mul_static_kernel, kG2Lanes * kG2Subgroups, x, y, z, ox, oy, oz, n, words, bits, stream);
 }
 
 const char* curve_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -1,7 +1,9 @@
 // BLS12-381 base-field arithmetic: the device functions of the K3 (fq_mul)
 // and K4 (fq_addsub) kernels of fq.cu and of the pow chains K5 (fq_pow) and
-// K6 (fq2_pow) of fq_pow.cu, kept in a header so that later fused kernels
-// (the Miller loop, the final exponentiation) can build on the same code.
+// K6 (fq2_pow) of fq_pow.cu and the ladders of curve.cuh, kept in a header
+// so that later fused kernels (the Miller loop, the final exponentiation)
+// can build on the same code: the batches (sums, mont_mul_n, fq2_products)
+// are what a fused tower kernel needs.
 // Two forms:
 //
 // - one thread per element (namespace fq): the kernels of the first port,
@@ -20,10 +22,11 @@
 // Montgomery form is the same integer in every layout, and repacking at the
 // boundary is exact.
 //
-// Every function takes and returns values below p. The header compiles as
-// plain C++ too (without nvcc the qualifiers fall away, and a group's lanes
-// run in lockstep over arrays), so its arithmetic can be checked by a host
-// compiler against the plain PyTorch version.
+// Every function takes and returns values below p, but for the lazy sums
+// (kLazyAdd, below 2p), which only Montgomery products take. The header
+// compiles as plain C++ too (without nvcc the qualifiers fall away, and a
+// group's lanes run in lockstep over arrays), so its arithmetic can be
+// checked by a host compiler against the plain PyTorch version.
 #pragma once
 
 #include <cstdint>
@@ -503,6 +506,352 @@ FQ_GD void mont_mul(Lanes<uint32_t, G> r[kDigits / G], const Lanes<uint32_t, G> 
   cond_sub_p<G>(r, d);
 }
 
+// ---------------------------------------------------------------------------
+// Batches: M independent Fq values on one group, each step of their chains
+// issued for all M before the next step of any. A warp issues in order, so
+// one value's chain alone leaves it waiting on every exchange; with M
+// values the other chains' arithmetic issues while an exchange is in
+// flight. At a flush's sizes (130-260 elements, a few warps on the card)
+// the card is idle but for those warps: a small batch costs little more
+// than one of its values, a large one as much as its warp can issue (see
+// mont_mul_split). x[j][k] below is digit k (of the running lane) of
+// value j.
+
+// A batch's slot kinds (a Carry or a Sum, below) as one template
+// argument, 2 bits a slot, slot j at bits 2 j: in the unrolled code each
+// slot's kind is then a constant, and its branches fold away.
+using Kinds = unsigned long long;
+
+FQ_HD constexpr unsigned kind(Kinds k, int j) { return (unsigned)(k >> (2 * j)) & 3u; }
+
+// the kinds t... of slots 0, 1, ...
+template <class... T>
+FQ_HD constexpr Kinds kinds(T... t) {
+  Kinds k = 0;
+  int j = 0;
+  ((k |= (Kinds)(unsigned)t << (2 * j++)), ...);
+  return k;
+}
+
+// the kind v in each of m slots
+FQ_HD constexpr Kinds uniform(unsigned v, int m) {
+  Kinds k = 0;
+  for (int j = 0; j < m; ++j) k |= (Kinds)v << (2 * j);
+  return k;
+}
+
+// One carry round over M values: slot j gets x_j + y_j (kind kCarryAdd;
+// each digit sum at most 2^25 - 2) or x_j - y_j (kCarrySub) mod 2^384 in
+// canonical digits, and out[j] the carry (the borrow) out of the top; a
+// kCarryNone slot is skipped. All slots share one round of ballots.
+enum Carry : unsigned { kCarryAdd, kCarrySub, kCarryNone };
+
+template <int G, int M, Kinds Modes>
+FQ_GD void carry_round(Lanes<uint32_t, G> r[M][kDigits / G], const Lanes<uint32_t, G> x[M][kDigits / G],
+                       const Lanes<uint32_t, G> y[M][kDigits / G], uint32_t (&out)[M]) {
+  constexpr int D = kDigits / G;
+  Lanes<bool, G> gen[M], prop[M];
+  FQ_LANES(l, G) {
+#pragma unroll
+    for (int j = 0; j < M; ++j) {
+      if (kind(Modes, j) == kCarryNone) continue;
+      const bool sub = kind(Modes, j) == kCarrySub;
+      uint32_t c = 0;
+      bool same = true;  // the lane passes a carry (borrow) in through: all ones (x == y)
+#pragma unroll
+      for (int k = 0; k < D; ++k) {
+        const uint32_t v = sub ? x[j][k][l] - y[j][k][l] - c : x[j][k][l] + y[j][k][l] + c;
+        c = sub ? v >> 31 : v >> kDigitBits;
+        same = same && (v & kDigitMask) == (sub ? 0u : kDigitMask);
+      }
+      gen[j][l] = c != 0;
+      prop[j][l] = same;
+    }
+  }
+  uint32_t carries[M];
+#pragma unroll
+  for (int j = 0; j < M; ++j)
+    carries[j] = kind(Modes, j) == kCarryNone ? 0u : lookahead(group_ballot<G>(gen[j]), group_ballot<G>(prop[j]));
+  FQ_LANES(l, G) {
+#pragma unroll
+    for (int j = 0; j < M; ++j) {
+      if (kind(Modes, j) == kCarryNone) continue;
+      const bool sub = kind(Modes, j) == kCarrySub;
+      uint32_t c = (carries[j] >> l) & 1u;
+#pragma unroll
+      for (int k = 0; k < D; ++k) {
+        const uint32_t v = sub ? x[j][k][l] - y[j][k][l] - c : x[j][k][l] + y[j][k][l] + c;
+        r[j][k][l] = v & kDigitMask;
+        c = sub ? v >> 31 : v >> kDigitBits;
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < M; ++j) out[j] = (carries[j] >> G) & 1u;
+}
+
+// The sum of a batch slot, on canonical operands (below p):
+// - kAdd: (a + b) mod p and kSub: (a - b) mod p, canonical; two carry
+//   rounds (the sum or difference, then the subtraction or addition of p);
+// - kLazyAdd: a + b unreduced, below 2p, in canonical digits; one carry
+//   round. Only for a value whose every consumer is a Montgomery product
+//   (mont_mul_n): with both factors below 2p the product's running sum
+//   stays below (a b + m p) / R < 4 p^2 / R + p < 2p, since 4p < R = 2^384,
+//   so its one conditional subtraction still ends it canonical. Nothing
+//   masked, selected, stored or summed again takes it.
+// A lazy a - b = a + (p - b) would take the same two carry rounds as kSub
+// here (p - b borrows across lanes), so a difference is always kSub.
+enum Sum : unsigned { kAdd, kSub, kLazyAdd };
+
+// The carry rounds of a sums() batch: the sum or difference, then the
+// subtraction of p (kAdd), its addition (kSub) or nothing (kLazyAdd)
+FQ_HD constexpr Kinds first_round(Kinds ops, int m) {
+  Kinds k = 0;
+  for (int j = 0; j < m; ++j) k |= (Kinds)(kind(ops, j) == kSub ? kCarrySub : kCarryAdd) << (2 * j);
+  return k;
+}
+
+FQ_HD constexpr Kinds second_round(Kinds ops, int m) {
+  Kinds k = 0;
+  for (int j = 0; j < m; ++j)
+    k |= (Kinds)(kind(ops, j) == kAdd ? kCarrySub : kind(ops, j) == kSub ? kCarryAdd : kCarryNone) << (2 * j);
+  return k;
+}
+
+// r_j = a_j op_j b_j for the M slots (Ops: their Sum kinds), every slot's
+// carry rounds together; r may alias a or b.
+template <int G, int M, Kinds Ops>
+FQ_GD void sums(Lanes<uint32_t, G> r[M][kDigits / G], const Lanes<uint32_t, G> a[M][kDigits / G],
+                const Lanes<uint32_t, G> b[M][kDigits / G]) {
+  constexpr int D = kDigits / G;
+  Lanes<uint32_t, G> p[D], s[M][D], y[M][D], t[M][D];
+  uint32_t c1[M], c2[M];
+  carry_round<G, M, first_round(Ops, M)>(s, a, b, c1);  // a + b < 2p < 2^382: no carry out
+  // kAdd: s - p, kept where it does not borrow; kSub: s + p where a < b
+  // (the carry out of the top cancels the wrap)
+  load_p<G>(p);
+  FQ_LANES(l, G) {
+#pragma unroll
+    for (int j = 0; j < M; ++j)
+#pragma unroll
+      for (int k = 0; k < D; ++k) y[j][k][l] = kind(Ops, j) == kAdd || c1[j] ? p[k][l] : 0u;
+  }
+  carry_round<G, M, second_round(Ops, M)>(t, s, y, c2);
+  FQ_LANES(l, G) {
+#pragma unroll
+    for (int j = 0; j < M; ++j)
+#pragma unroll
+      for (int k = 0; k < D; ++k)
+        r[j][k][l] = kind(Ops, j) == kLazyAdd || (kind(Ops, j) == kAdd && c2[j]) ? s[j][k][l] : t[j][k][l];
+  }
+}
+
+// M independent Montgomery products r_j = a_j b_j / 2^384 mod p, mont_mul's
+// algorithm with the rows of all M interleaved: row i of every product
+// issues before row i + 1 of any, so each row's two dependent exchanges (m
+// from lane 0, the shift from the next lane) overlap the other products'
+// multiply-adds. Each product keeps mont_mul's digit bounds (its operands
+// in canonical digits) and its final carries and conditional subtraction,
+// so with a_j b_j < p R (both below 2p, see kLazyAdd) each r_j is
+// canonical. r may alias a or b.
+template <int G, int M>
+FQ_GD void mont_mul_n(Lanes<uint32_t, G> r[M][kDigits / G], const Lanes<uint32_t, G> a[M][kDigits / G],
+                      const Lanes<uint32_t, G> b[M][kDigits / G]) {
+  constexpr int D = kDigits / G;
+  Lanes<uint32_t, G> p[D];
+  Lanes<uint64_t, G> t[M][D];
+  load_p<G>(p);
+  FQ_LANES(l, G) {
+#pragma unroll
+    for (int j = 0; j < M; ++j)
+#pragma unroll
+      for (int k = 0; k < D; ++k) t[j][k][l] = 0;
+  }
+  // the rows of a lane's D digits of b unrolled, the G lanes' turns not:
+  // the code of a batch stays small enough for the instruction cache
+#pragma unroll 1
+  for (int from = 0; from < G; ++from)
+#pragma unroll
+  for (int i = 0; i < D; ++i) {
+    Lanes<uint32_t, G> bi[M], m0[M], m[M], down[M];
+#pragma unroll
+    for (int j = 0; j < M; ++j) bi[j] = broadcast<G>(b[j][i], from);
+    FQ_LANES(l, G) {
+#pragma unroll
+      for (int j = 0; j < M; ++j) {
+#pragma unroll
+        for (int k = 0; k < D; ++k) t[j][k][l] = mad_wide(a[j][k][l], bi[j][l], t[j][k][l]);
+        m0[j][l] = ((uint32_t)t[j][0][l] * kN0Digit) & kDigitMask;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < M; ++j) m[j] = broadcast<G>(m0[j], 0);
+    FQ_LANES(l, G) {
+#pragma unroll
+      for (int j = 0; j < M; ++j) {
+#pragma unroll
+        for (int k = 0; k < D; ++k) t[j][k][l] = mad_wide(m[j][l], p[k][l], t[j][k][l]);
+        down[j][l] = (uint32_t)t[j][0][l] & kDigitMask;  // 0 on lane 0
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < M; ++j) down[j] = from_next<G>(down[j]);
+    FQ_LANES(l, G) {
+#pragma unroll
+      for (int j = 0; j < M; ++j) {
+        const uint64_t carry = t[j][0][l] >> kDigitBits;
+#pragma unroll
+        for (int k = 0; k + 1 < D; ++k) t[j][k][l] = t[j][k + 1][l];
+        t[j][D - 1][l] = down[j][l];
+        t[j][0][l] += carry;
+      }
+    }
+  }
+  // the carries as in mont_mul, every product's step together
+  Lanes<uint32_t, G> d[M][D], c[M], q[M][D], zero[M][D], pp[M][D];
+  FQ_LANES(l, G) {
+#pragma unroll
+    for (int j = 0; j < M; ++j) {
+#pragma unroll
+      for (int k = 0; k < D; ++k) d[j][k][l] = (uint32_t)t[j][k][l] & kDigitMask;
+#pragma unroll
+      for (int k = 1; k < D; ++k) d[j][k][l] += (uint32_t)(t[j][k - 1][l] >> kDigitBits);
+      c[j][l] = (uint32_t)(t[j][D - 1][l] >> kDigitBits);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < M; ++j) c[j] = from_prev<G>(c[j]);
+  FQ_LANES(l, G) {
+#pragma unroll
+    for (int j = 0; j < M; ++j) {
+      uint32_t carry = c[j][l];
+#pragma unroll
+      for (int k = 0; k < D; ++k) {
+        const uint32_t v = d[j][k][l] + carry;
+        d[j][k][l] = v & kDigitMask;
+        carry = v >> kDigitBits;
+      }
+      c[j][l] = carry;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < M; ++j) c[j] = from_prev<G>(c[j]);
+  uint32_t top[M], below[M];
+  FQ_LANES(l, G) {
+#pragma unroll
+    for (int j = 0; j < M; ++j) {
+      d[j][0][l] += c[j][l];
+#pragma unroll
+      for (int k = 0; k < D; ++k) {
+        zero[j][k][l] = 0u;
+        pp[j][k][l] = p[k][l];
+      }
+    }
+  }
+  carry_round<G, M, uniform(kCarryAdd, M)>(d, d, zero, top);  // settle: the sum is below 2p, top is 0
+  carry_round<G, M, uniform(kCarrySub, M)>(q, d, pp, below);  // the conditional subtraction of p
+  FQ_LANES(l, G) {
+#pragma unroll
+    for (int j = 0; j < M; ++j)
+#pragma unroll
+      for (int k = 0; k < D; ++k) r[j][k][l] = below[j] ? d[j][k][l] : q[j][k][l];
+  }
+}
+
+// Where a split batch (mont_mul_split) lies, for the lane of a block with
+// index `lane`: its subgroup; whether subgroup s runs slot t H + j as its
+// j-th product (t > 0: subgroup 0 runs slot j, and so does a subgroup with
+// no slot t H + j, a product computed and not read); and the lane of the S
+// G lanes from which the lane at `place` in its group takes subgroup t's
+// results. The slot is chosen by comparing s with each constant t, so that
+// on the card every operand is indexed by a constant and stays in
+// registers: an index the compiler can equate with s puts the operands on
+// the stack (ptxas then reports a stack frame for K6 and K8).
+template <int G, int S>
+FQ_HD constexpr int split_group(unsigned lane) { return (int)(lane / G % S); }
+
+template <int M, int S>
+FQ_HD constexpr bool split_runs(int s, int t, int j) { return t * ((M + S - 1) / S) + j < M && s == t; }
+
+template <int G>
+FQ_HD constexpr int split_source(int place, int t) { return place + t * G; }
+
+// A batch of M products split over S subgroups of G lanes of a warp that
+// hold the same values (an element on S G lanes): subgroup s runs products
+// s H .. s H + H - 1 (H = ceil(M / S)) as one mont_mul_n, then every lane
+// takes the others' results from the lane of its place in their subgroups
+// by a shuffle. The warp issues the work of H products, not M: at a
+// flush's sizes, a few warps on an idle card, a large batch on one group
+// waits on its warp's issue (K8's 7-11-product batches ran 1.4x faster
+// split in two, PERF.md). The host build runs the subgroups one after
+// another, then hands each lane of an element's S G lanes (those of a
+// block's second element, where the subgroup index wraps) what the
+// shuffle hands it, through the same split_* arithmetic; a lane whose
+// results differ from those of its place in subgroup 0 counts in
+// lane_faults. r may alias a or b.
+template <int G, int S, int M>
+FQ_GD void mont_mul_split(Lanes<uint32_t, G> r[M][kDigits / G], const Lanes<uint32_t, G> a[M][kDigits / G],
+                          const Lanes<uint32_t, G> b[M][kDigits / G]) {
+  constexpr int D = kDigits / G, H = (M + S - 1) / S;
+  if constexpr (S == 1) {
+    mont_mul_n<G, M>(r, a, b);
+  } else {
+#if defined(__CUDACC__)
+    Lanes<uint32_t, G> x[H][D], y[H][D], z[H][D];
+    const int s = split_group<G, S>(threadIdx.x);
+#pragma unroll
+    for (int j = 0; j < H; ++j)
+#pragma unroll
+      for (int k = 0; k < D; ++k) {
+        x[j][k] = a[j][k];
+        y[j][k] = b[j][k];
+#pragma unroll
+        for (int t = 1; t < S; ++t)
+          if (split_runs<M, S>(s, t, j)) x[j][k] = a[t * H + j][k], y[j][k] = b[t * H + j][k];
+      }
+    mont_mul_n<G, H>(z, x, y);
+    const int place = (int)(threadIdx.x % G);
+#pragma unroll
+    for (int t = 0; t < S; ++t)
+#pragma unroll
+      for (int j = 0; j < H; ++j)
+        if (t * H + j < M)
+#pragma unroll
+          for (int k = 0; k < D; ++k)
+            r[t * H + j][k].v = __shfl_sync(0xffffffffu, z[j][k].v, split_source<G>(place, t), G * S);
+#else
+    Lanes<uint32_t, G> x[H][D], y[H][D], z[S][H][D];
+    for (int s = 0; s < S; ++s) {
+      for (int j = 0; j < H; ++j)
+        for (int k = 0; k < D; ++k) {
+          x[j][k] = a[j][k];
+          y[j][k] = b[j][k];
+          for (int t = 1; t < S; ++t)
+            if (split_runs<M, S>(s, t, j)) x[j][k] = a[t * H + j][k], y[j][k] = b[t * H + j][k];
+        }
+      mont_mul_n<G, H>(z[s], x, y);
+    }
+    const int first = G * S;  // the block's second element
+    for (int w = 0; w < G * S; ++w) {
+      const int place = (first + w) % G;
+      for (int t = 0; t < S; ++t)
+        for (int j = 0; j < H; ++j) {
+          if (t * H + j >= M) continue;
+          const int src = first + split_source<G>(place, t) % (G * S);  // __shfl_sync's lane in its G S lanes
+          const int from = split_group<G, S>((unsigned)src);
+          for (int k = 0; k < D; ++k) {
+            const uint32_t v = from >= 0 && from < S ? z[from][j][k].v[src % G] : ~0u;
+            if (w < G)
+              r[t * H + j][k].v[place] = v;
+            else if (r[t * H + j][k].v[place] != v)
+              ++lane_faults;
+          }
+        }
+    }
+#endif
+  }
+}
+
 // Every function below writes its result only after its last read of an
 // operand, so r may alias a or b.
 
@@ -548,77 +897,266 @@ FQ_GD void pow(Lanes<uint32_t, G> r[kDigits / G], const Lanes<uint32_t, G> a[kDi
   }
 }
 
+FQ_HD constexpr int count_bits(unsigned x) {
+  int n = 0;
+  for (; x; x >>= 1) n += (int)(x & 1u);
+  return n;
+}
+
+// the leading sums of fq2_products' squares: a0 + a1, a0 - a1, 2 a0 each
+FQ_HD constexpr Kinds fq2_square_sums(int squares) {
+  Kinds k = 0;
+  for (int s = 0; s < squares; ++s)
+    k |= (Kinds)kLazyAdd << (6 * s) | (Kinds)kSub << (6 * s + 2) | (Kinds)kLazyAdd << (6 * s + 4);
+  return k;
+}
+
+// the trailing sums of its products: a0 b0 - a1 b1, a0 b1 + a1 b0 each
+FQ_HD constexpr Kinds fq2_product_sums(int products) {
+  Kinds k = 0;
+  for (int s = 0; s < products; ++s) k |= (Kinds)kSub << (4 * s) | (Kinds)kAdd << (4 * s + 2);
+  return k;
+}
+
 // Fq2 = Fq[u] / (u^2 + 1) on one group: x[0] + x[1] u, each half on the
-// same G lanes, the products run one after another.
-
-// (a0 + a1 u)^2 = (a0 + a1)(a0 - a1) + 2 a0 a1 u: 2 products, 3 sums
-template <int G>
-FQ_GD void fq2_square(Lanes<uint32_t, G> r[2][kDigits / G], const Lanes<uint32_t, G> a[2][kDigits / G]) {
+// same G lanes. M independent Fq2 products r_j = a_j b_j run as one batch;
+// slot j is a square where bit j of Squares is set (b_j is then not read):
+//   (a0 + a1 u)^2 = (a0 + a1)(a0 - a1) + (2 a0) a1 u: 2 Fq products after
+//   one batch of leading sums (a0 + a1 and 2 a0 lazy: they feed only
+//   products);
+//   (a0 + a1 u)(b0 + b1 u) = (a0 b0 - a1 b1) + (a0 b1 + a1 b0) u: 4 Fq
+//   products, then one batch of trailing sums. Karatsuba's 3 products
+//   would take 3 more carry rounds (a leading batch and a second trailing
+//   one), and with the products split over 2 subgroups a fourth costs no
+//   more than a third.
+// Every slot's sums of one kind run as one sums() batch, every slot's Fq
+// products as one batch split over S subgroups (mont_mul_split). Operands
+// canonical, results canonical; r may alias a or b.
+template <int G, int M, unsigned Squares, int S>
+FQ_GD void fq2_products(Lanes<uint32_t, G> r[M][2][kDigits / G], const Lanes<uint32_t, G> a[M][2][kDigits / G],
+                        const Lanes<uint32_t, G> b[M][2][kDigits / G]) {
   constexpr int D = kDigits / G;
-  Lanes<uint32_t, G> s[D], d[D], t[D];
-  addsub<G>(s, a[0], a[1], 0);
-  addsub<G>(d, a[0], a[1], 1);
-  addsub<G>(t, a[0], a[0], 0);
-  mont_mul<G>(r[1], t, a[1]);
-  mont_mul<G>(r[0], s, d);
+  constexpr int kSquares = count_bits(Squares & ((1u << M) - 1u)), kMuls = M - kSquares;
+  constexpr int kPre = kSquares > 0 ? 3 * kSquares : 1, kPost = kMuls > 0 ? 2 * kMuls : 1;
+  constexpr int kProducts = 2 * kSquares + 4 * kMuls;
+  // a square's a0 + a1, a0 - a1, 2 a0
+  Lanes<uint32_t, G> pa[kPre][D], pb[kPre][D], ps[kPre][D];
+  if constexpr (kSquares > 0) {
+    int s = 0;
+#pragma unroll
+    for (int j = 0; j < M; ++j) {
+      if (!((Squares >> j) & 1u)) continue;
+#pragma unroll
+      for (int k = 0; k < D; ++k) {
+        pa[s][k] = pa[s + 1][k] = pa[s + 2][k] = pb[s + 2][k] = a[j][0][k];
+        pb[s][k] = pb[s + 1][k] = a[j][1][k];
+      }
+      s += 3;
+    }
+    sums<G, 3 * kSquares, fq2_square_sums(kSquares)>(ps, pa, pb);
+  }
+  // the products: a square's (2 a0) a1, (a0 + a1)(a0 - a1); a product's
+  // a0 b0, a1 b1, a0 b1, a1 b0
+  Lanes<uint32_t, G> ma[kProducts][D], mb[kProducts][D], mr[kProducts][D];
+  int s = 0, q = 0;
+#pragma unroll
+  for (int j = 0; j < M; ++j) {
+    const bool square = (Squares >> j) & 1u;
+#pragma unroll
+    for (int k = 0; k < D; ++k) {
+      if (square) {
+        ma[q][k] = ps[s + 2][k];
+        mb[q][k] = a[j][1][k];
+        ma[q + 1][k] = ps[s][k];
+        mb[q + 1][k] = ps[s + 1][k];
+      } else {
+        ma[q][k] = ma[q + 2][k] = a[j][0][k];
+        ma[q + 1][k] = ma[q + 3][k] = a[j][1][k];
+        mb[q][k] = mb[q + 3][k] = b[j][0][k];
+        mb[q + 1][k] = mb[q + 2][k] = b[j][1][k];
+      }
+    }
+    s += square ? 3 : 0;
+    q += square ? 2 : 4;
+  }
+  mont_mul_split<G, S, kProducts>(mr, ma, mb);
+  // a product's a0 b0 - a1 b1 and a0 b1 + a1 b0
+  Lanes<uint32_t, G> xa[kPost][D], xb[kPost][D], xs[kPost][D];
+  if constexpr (kMuls > 0) {
+    int u = 0;
+    q = 0;
+#pragma unroll
+    for (int j = 0; j < M; ++j) {
+      if ((Squares >> j) & 1u) {
+        q += 2;
+        continue;
+      }
+#pragma unroll
+      for (int k = 0; k < D; ++k) {
+        xa[u][k] = mr[q][k];
+        xb[u][k] = mr[q + 1][k];
+        xa[u + 1][k] = mr[q + 2][k];
+        xb[u + 1][k] = mr[q + 3][k];
+      }
+      u += 2;
+      q += 4;
+    }
+    sums<G, 2 * kMuls, fq2_product_sums(kMuls)>(xs, xa, xb);
+  }
+  int u = 0;
+  q = 0;
+#pragma unroll
+  for (int j = 0; j < M; ++j) {
+    const bool square = (Squares >> j) & 1u;
+#pragma unroll
+    for (int k = 0; k < D; ++k) {
+      r[j][0][k] = square ? mr[q + 1][k] : xs[u][k];
+      r[j][1][k] = square ? mr[q][k] : xs[u + 1][k];
+    }
+    u += square ? 0 : 2;
+    q += square ? 2 : 4;
+  }
 }
 
-// Karatsuba: a0 b0 - a1 b1 + ((a0 + a1)(b0 + b1) - a0 b0 - a1 b1) u: 3
-// products, 5 sums
-template <int G>
-FQ_GD void fq2_mul(Lanes<uint32_t, G> r[2][kDigits / G], const Lanes<uint32_t, G> a[2][kDigits / G],
-                   const Lanes<uint32_t, G> b[2][kDigits / G]) {
-  constexpr int D = kDigits / G;
-  Lanes<uint32_t, G> t0[D], t1[D], sa[D], sb[D], t2[D];
-  mont_mul<G>(t0, a[0], b[0]);
-  mont_mul<G>(t1, a[1], b[1]);
-  addsub<G>(sa, a[0], a[1], 0);
-  addsub<G>(sb, b[0], b[1], 0);
-  mont_mul<G>(t2, sa, sb);
-  addsub<G>(r[0], t0, t1, 1);
-  addsub<G>(t2, t2, t0, 1);
-  addsub<G>(r[1], t2, t1, 1);
-}
+// bits 4 i .. 4 i + 3 of e
+FQ_HD uint32_t exponent_nibble(const Exponent& e, int i) { return (e.words[i / 8] >> (4 * (i % 8))) & 0xfu; }
 
-// K6's body: r = a^e in Fq2, the walk of pow from (1, 0)
-template <int G>
+// A table of Entries Fq2 elements for each lane of a block, indexed by a
+// value that is the same on every lane of the warp. On the card it lies
+// in shared memory as rows of blockDim.x words, word (entry, half, digit)
+// of a thread in its column threadIdx.x: a lane reads only the words it
+// wrote itself (no exchange, no barrier) and a warp's 32 lanes hit 32
+// banks. Without nvcc it is an array of Lanes, which the host build holds
+// to the same rule (a read of another lane's entry counts in lane_faults).
+template <int G, int Entries>
+struct Fq2Table {
+  static constexpr int D = kDigits / G;
+#if defined(__CUDACC__)
+  static constexpr int kWordsPerThread = Entries * 2 * D;
+  uint32_t* words;  // kWordsPerThread rows of blockDim.x words
+
+  FQ_GD void store(int e, const Lanes<uint32_t, G> x[2][D]) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int k = 0; k < D; ++k) words[((e * 2 + h) * D + k) * blockDim.x + threadIdx.x] = x[h][k].v;
+  }
+
+  FQ_GD void load(Lanes<uint32_t, G> x[2][D], int e) const {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int k = 0; k < D; ++k) x[h][k].v = words[((e * 2 + h) * D + k) * blockDim.x + threadIdx.x];
+  }
+#else
+  Lanes<uint32_t, G> v[Entries][2][D];
+
+  void store(int e, const Lanes<uint32_t, G> x[2][D]) {
+    FQ_LANES(l, G) {
+      for (int h = 0; h < 2; ++h)
+        for (int k = 0; k < D; ++k) v[e][h][k][l] = x[h][k][l];
+    }
+  }
+
+  void load(Lanes<uint32_t, G> x[2][D], int e) const {
+    FQ_LANES(l, G) {
+      for (int h = 0; h < 2; ++h)
+        for (int k = 0; k < D; ++k) x[h][k][l] = v[e][h][k][l];
+    }
+  }
+#endif
+};
+
+// K6's window: 4 bits, a table of a^0 .. a^15
+constexpr int kWindowBits = 4;
+constexpr int kWindowEntries = 1 << kWindowBits;
+
+// K6's body: r = a^e in Fq2 with a fixed 4-bit window, on S subgroups of
+// G lanes holding the same values (fq2_products' split). The table takes
+// a^0 .. a^15 (14 products); then from the top nibble of e down, 4 squares
+// and, at a nonzero nibble, one product with its table entry. The exponent
+// is uniform, so the branch and the table index are too. Each square and
+// product is one fq2_products batch, so the chain is as deep as its Fq2
+// operations: for e = (p - 1) / 2, 14 + 376 + 90 = 480 batched rounds,
+// against 1,447 Fq products one after another on the bit-serial walk.
+template <int G, int S, class Table>
 FQ_GD void fq2_pow(Lanes<uint32_t, G> r[2][kDigits / G], const Lanes<uint32_t, G> a[2][kDigits / G],
-                   const Exponent& e) {
+                   const Exponent& e, Table& table) {
   constexpr int D = kDigits / G;
-  load_one<G>(r[0]);
+  Lanes<uint32_t, G> acc[1][2][D], base[1][2][D];
+  load_one<G>(acc[0][0]);
   FQ_LANES(l, G) {
 #pragma unroll
-    for (int k = 0; k < D; ++k) r[1][k][l] = 0u;
+    for (int k = 0; k < D; ++k) acc[0][1][k][l] = 0u;
   }
-  for (int i = e.bits - 1; i >= 0; --i) {
-    fq2_square<G>(r, r);
-    if (exponent_bit(e, i)) fq2_mul<G>(r, r, a);
+  table.store(0, acc[0]);
+#pragma unroll
+  for (int k = 0; k < D; ++k) base[0][0][k] = acc[0][0][k] = a[0][k], base[0][1][k] = acc[0][1][k] = a[1][k];
+  table.store(1, acc[0]);
+#pragma unroll 1
+  for (int w = 2; w < kWindowEntries; ++w) {
+    fq2_products<G, 1, 0u, S>(acc, acc, base);
+    table.store(w, acc[0]);
   }
+  const int nibbles = (e.bits + kWindowBits - 1) / kWindowBits;
+  table.load(acc[0], nibbles > 0 ? (int)exponent_nibble(e, nibbles - 1) : 0);
+  for (int i = nibbles - 2; i >= 0; --i) {
+#pragma unroll 1
+    for (int s = 0; s < kWindowBits; ++s) fq2_products<G, 1, 1u, S>(acc, acc, acc);
+    const int w = (int)exponent_nibble(e, i);
+    if (w) {
+      table.load(base[0], w);
+      fq2_products<G, 1, 0u, S>(acc, acc, base);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < D; ++k) r[0][k] = acc[0][0][k], r[1][k] = acc[0][1][k];
+}
+
+// pred of any lane of the warp, on every lane: lets a warp skip work that
+// none of its groups needs (pred is the same on a group's lanes). Without
+// nvcc a warp is the one group the host runs.
+FQ_GD bool warp_any(bool pred) {
+#if defined(__CUDACC__)
+  return __any_sync(0xffffffffu, pred);
+#else
+  return pred;
+#endif
 }
 
 #if defined(__CUDACC__)
 // lane l's digits D l .. D l + D - 1 of the element at src (the tensor
 // layout's limbs 2 D l .. 2 D l + 2 D - 1): its D / 2 int4s
+// (an int2 where a lane holds one digit, G = 16)
 template <int G>
 __device__ __forceinline__ void load_digits(Lanes<uint32_t, G> d[kDigits / G], const int32_t* src, int l) {
   constexpr int D = kDigits / G;
-  const int4* v = reinterpret_cast<const int4*>(src + 2 * D * l);
+  if constexpr (D == 1) {
+    const int2 w = reinterpret_cast<const int2*>(src)[l];
+    d[0].v = (uint32_t)w.x | ((uint32_t)w.y << 12);
+  } else {
+    const int4* v = reinterpret_cast<const int4*>(src + 2 * D * l);
 #pragma unroll
-  for (int q = 0; q < D / 2; ++q) {
-    const int4 w = v[q];
-    d[2 * q].v = (uint32_t)w.x | ((uint32_t)w.y << 12);
-    d[2 * q + 1].v = (uint32_t)w.z | ((uint32_t)w.w << 12);
+    for (int q = 0; q < D / 2; ++q) {
+      const int4 w = v[q];
+      d[2 * q].v = (uint32_t)w.x | ((uint32_t)w.y << 12);
+      d[2 * q + 1].v = (uint32_t)w.z | ((uint32_t)w.w << 12);
+    }
   }
 }
 
 template <int G>
 __device__ __forceinline__ void store_digits(int32_t* dst, const Lanes<uint32_t, G> d[kDigits / G], int l) {
   constexpr int D = kDigits / G;
-  int4* v = reinterpret_cast<int4*>(dst + 2 * D * l);
+  if constexpr (D == 1) {
+    reinterpret_cast<int2*>(dst)[l] = make_int2((int)(d[0].v & 0xfffu), (int)(d[0].v >> 12));
+  } else {
+    int4* v = reinterpret_cast<int4*>(dst + 2 * D * l);
 #pragma unroll
-  for (int q = 0; q < D / 2; ++q) {
-    const uint32_t lo = d[2 * q].v, hi = d[2 * q + 1].v;
-    v[q] = make_int4((int)(lo & 0xfffu), (int)(lo >> 12), (int)(hi & 0xfffu), (int)(hi >> 12));
+    for (int q = 0; q < D / 2; ++q) {
+      const uint32_t lo = d[2 * q].v, hi = d[2 * q + 1].v;
+      v[q] = make_int4((int)(lo & 0xfffu), (int)(lo >> 12), (int)(hi & 0xfffu), (int)(hi >> 12));
+    }
   }
 }
 #endif

@@ -49,6 +49,9 @@ _I64 = ctypes.c_int64
 _WORDS = ctypes.c_uint32 * 12  # an exponent of at most 384 bits
 _exponents: dict = {}  # bits (a tuple) -> (words, length)
 _CURVE_HEADERS = ("fq.cuh", "curve.cuh")
+# the ctypes argument types of fq_pow.cu's and curve.cu's C launch functions
+POW_ARGTYPES = [_P, _P, _I64, ctypes.POINTER(ctypes.c_uint32), ctypes.c_int, _P]
+CURVE_ARGTYPES = [_P] * 6 + [_I64, ctypes.POINTER(ctypes.c_uint32), ctypes.c_int, _P]
 
 
 def reset_counters() -> None:
@@ -89,8 +92,8 @@ def _load_pow():
     global _pow_lib
     with _lock:
         if _pow_lib is None:
-            sig = [_P, _P, _I64, ctypes.POINTER(ctypes.c_uint32), ctypes.c_int, _P]
-            _pow_lib = cuda_build.load("fq_pow.cu", ("fq.cuh",), {"fq_pow_launch": sig, "fq2_pow_launch": sig},
+            _pow_lib = cuda_build.load("fq_pow.cu", ("fq.cuh",),
+                                       {"fq_pow_launch": POW_ARGTYPES, "fq2_pow_launch": POW_ARGTYPES},
                                        "fq_pow_error_string")
     return _pow_lib
 
@@ -99,9 +102,9 @@ def _load_curve():
     global _curve_lib
     with _lock:
         if _curve_lib is None:
-            sig = [_P] * 6 + [_I64, ctypes.POINTER(ctypes.c_uint32), ctypes.c_int, _P]
             _curve_lib = cuda_build.load("curve.cu", _CURVE_HEADERS,
-                                         {"g1_mul_static_launch": sig, "g2_mul_static_launch": sig},
+                                         {"g1_mul_static_launch": CURVE_ARGTYPES,
+                                          "g2_mul_static_launch": CURVE_ARGTYPES},
                                          "curve_error_string")
     return _curve_lib
 

@@ -114,11 +114,11 @@ _HOST_SRC = r"""
 #include "curve.cuh"
 """ + HOST_DIGITS_SRC + r"""
 
-// K7 (N = 1, G = 4) or K8 (N = 2, G = 8) as curve.cu builds them, one
-// element at a time
-template <int G, int N>
+// K7 (N = 1, G = 4) or K8 (N = 2, G = 16, its batches split over 2
+// subgroups) as curve.cu builds them, one element at a time
+template <int G, int N, int S>
 void ladders(const int32_t* const in[3], int32_t* const out[3], long n, const fq::lanes::Exponent& k) {
-  using F = curve::Field<G, N>;
+  using F = curve::Field<G, N, S>;
   for (long i = 0; i < n; ++i) {
     curve::Jac<F> p, r;
     typename F::E* pc[3] = {&p.x, &p.y, &p.z};
@@ -142,8 +142,8 @@ extern "C" long host_mul_static_lanes(const int32_t* x, const int32_t* y, const 
   const int32_t* in[3] = {x, y, z};
   int32_t* out[3] = {ox, oy, oz};
   fq::lanes::lane_faults = 0;
-  if (degree == 1) ladders<4, 1>(in, out, n, k);
-  else ladders<8, 2>(in, out, n, k);
+  if (degree == 1) ladders<4, 1, 1>(in, out, n, k);
+  else ladders<16, 2, 2>(in, out, n, k);
   return fq::lanes::lane_faults;
 }
 """
@@ -162,8 +162,10 @@ def host_curve_lib(tmp_path_factory):
 @pytest.mark.parametrize("g2", [False, True], ids=["g1", "g2"])
 def test_kernel_ladder_matches_plain_version_and_host_oracle(host_curve_lib, g2, k):
     """K7 (G1, groups of 4 lanes) and K8 (G2, groups of 8): curve.cuh's
-    mul_static, bit-exact against the plain version, the points equal to
-    the host oracle's, with no read of another lane's entry."""
+    mul_static on its level schedules, bit-exact against the plain version,
+    the points equal to the host oracle's, with no read of another lane's
+    entry. The edge points take every special case of the addition: on G1
+    the 3-torsion points reach P1 == P2 (the doubling) and P1 == -P2."""
     ins = _jac(POINTS[g2])
     outs = tuple(np.zeros_like(a) for a in ins)
     words = np.array([(k >> (32 * j)) & 0xFFFFFFFF for j in range(12)], dtype=np.uint32)

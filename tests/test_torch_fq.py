@@ -6,11 +6,12 @@ comparison is bit-exact on the limbs: both packages return canonical
 residues. Inputs are seeded numpy limb arrays handed to both.
 
 The kernels' own arithmetic (``csrc/fq.cuh``: the one-thread bodies with
-the 12-bit to 32-bit repacking at their boundary, and the lane-group bodies
-of K3/K4 and of the K5/K6 chains with a group's lanes run in lockstep over
-arrays) also compiles as plain C++; where a host C++ compiler is present it
-is built here and held against the plain versions and Python integers on
-the same inputs."""
+the 12-bit to 32-bit repacking at their boundary, the lane-group bodies of
+K3/K4 and of the K5/K6 chains, and the batches that K6 and the ladders are
+built on, ``mont_mul_n`` and ``sums`` with its lazy sums, with a group's
+lanes run in lockstep over arrays) also compiles as plain C++; where a host
+C++ compiler is present it is built here and held against the plain
+versions and Python integers on the same inputs."""
 import ctypes
 import shutil
 import subprocess
@@ -189,23 +190,98 @@ extern "C" long host_fq_lanes(const int32_t* a, const int32_t* b, int32_t* out, 
   return fq::lanes::lane_faults;
 }
 
-// the pow chains of fq_pow.cu on groups of 4 lanes: K5 (degree 1, elements
-// of 32 limbs) or K6 (degree 2, of 2 x 32), the exponent as its 12 words
-// and bit length; returns the reads of another lane's entry
+// the pow chains of fq_pow.cu as it builds them: K5 (degree 1, elements of
+// 32 limbs) on groups of 4 lanes or K6 (degree 2, of 2 x 32) on 2
+// subgroups of 8, the exponent as its 12 words and bit length
+template <int G, int S>
+void host_pow(const int32_t* a, int32_t* out, long n, int degree, const fq::lanes::Exponent& e) {
+  constexpr int D = fq::lanes::kDigits / G;
+  for (long i = 0; i < n; ++i) {
+    fq::lanes::Lanes<uint32_t, G> x[2][D], r[2][D];
+    fq::lanes::Fq2Table<G, fq::lanes::kWindowEntries> table;
+    for (int c = 0; c < degree; ++c) host_load<G>(x[c], a + 32 * (degree * i + c));
+    if (degree == 1) fq::lanes::pow<G>(r[0], x[0], e);
+    else fq::lanes::fq2_pow<G, S>(r, x, e, table);
+    for (int c = 0; c < degree; ++c) host_store<G>(out + 32 * (degree * i + c), r[c]);
+  }
+}
+
+// returns the reads of another lane's entry
 extern "C" long host_fq_pow_lanes(const int32_t* a, int32_t* out, long n, int degree, const uint32_t* words,
                                   int bits) {
-  constexpr int G = 4, D = fq::lanes::kDigits / G;
   fq::lanes::Exponent e;
   for (int j = 0; j < fq::kWords; ++j) e.words[j] = words[j];
   e.bits = bits;
   fq::lanes::lane_faults = 0;
-  for (long i = 0; i < n; ++i) {
-    fq::lanes::Lanes<uint32_t, G> x[2][D], r[2][D];
-    for (int c = 0; c < degree; ++c) host_load<G>(x[c], a + 32 * (degree * i + c));
-    if (degree == 1) fq::lanes::pow<G>(r[0], x[0], e);
-    else fq::lanes::fq2_pow<G>(r, x, e);
-    for (int c = 0; c < degree; ++c) host_store<G>(out + 32 * (degree * i + c), r[c]);
+  if (degree == 1) host_pow<4, 1>(a, out, n, degree, e);
+  else host_pow<8, 2>(a, out, n, degree, e);
+  return fq::lanes::lane_faults;
+}
+
+// fq.cuh's batch of Montgomery products for M of 2, 3 or 7 on groups of G
+// lanes, as mont_mul_n (S = 1) or split over S = 2 subgroups
+// (mont_mul_split): out_j = a_j b_j / R for n = a multiple of M operand
+// pairs, each below 2p (a lazy sum's range)
+template <int G, int M, int S>
+void host_batch(const int32_t* a, const int32_t* b, int32_t* out, long n) {
+  constexpr int D = fq::lanes::kDigits / G;
+  for (long i = 0; i < n; i += M) {
+    fq::lanes::Lanes<uint32_t, G> x[M][D], y[M][D], r[M][D];
+    for (int j = 0; j < M; ++j) {
+      host_load<G>(x[j], a + 32 * (i + j));
+      host_load<G>(y[j], b + 32 * (i + j));
+    }
+    fq::lanes::mont_mul_split<G, S, M>(r, x, y);
+    for (int j = 0; j < M; ++j) host_store<G>(out + 32 * (i + j), r[j]);
   }
+}
+
+template <int G, int S>
+void host_batch_m(const int32_t* a, const int32_t* b, int32_t* out, long n, int m) {
+  if (m == 2) host_batch<G, 2, S>(a, b, out, n);
+  else if (m == 3) host_batch<G, 3, S>(a, b, out, n);
+  else host_batch<G, 7, S>(a, b, out, n);
+}
+
+// returns the reads of another lane's entry, and (split) the lanes handed
+// results other than their subgroup 0's
+extern "C" long host_mont_mul_n(const int32_t* a, const int32_t* b, int32_t* out, long n, int m, int lanes,
+                                int split) {
+  fq::lanes::lane_faults = 0;
+  if (lanes == 4 && split == 1) host_batch_m<4, 1>(a, b, out, n, m);
+  else if (lanes == 4) host_batch_m<4, 2>(a, b, out, n, m);
+  else if (split == 1) host_batch_m<8, 1>(a, b, out, n, m);
+  else host_batch_m<8, 2>(a, b, out, n, m);
+  return fq::lanes::lane_faults;
+}
+
+// fq.cuh's sums batch on canonical a, b: the slots kAdd, kSub and kLazyAdd
+// together, then the lazy sum s into mont_mul_n as s c and s s; out holds 5
+// values an element: (a + b) mod p, (a - b) mod p, s = a + b, s c / R, s s / R
+template <int G>
+void host_sums(const int32_t* a, const int32_t* b, const int32_t* c, int32_t* out, long n) {
+  constexpr int D = fq::lanes::kDigits / G;
+  constexpr fq::lanes::Kinds kOps = fq::lanes::kinds(fq::lanes::kAdd, fq::lanes::kSub, fq::lanes::kLazyAdd);
+  for (long i = 0; i < n; ++i) {
+    fq::lanes::Lanes<uint32_t, G> x[3][D], y[3][D], s[3][D], u[2][D], v[2][D], m[2][D];
+    for (int j = 0; j < 3; ++j) {
+      host_load<G>(x[j], a + 32 * i);
+      host_load<G>(y[j], b + 32 * i);
+    }
+    fq::lanes::sums<G, 3, kOps>(s, x, y);
+    host_load<G>(v[0], c + 32 * i);
+    for (int k = 0; k < D; ++k) u[0][k] = u[1][k] = v[1][k] = s[2][k];
+    fq::lanes::mont_mul_n<G, 2>(m, u, v);
+    for (int j = 0; j < 3; ++j) host_store<G>(out + 32 * (5 * i + j), s[j]);
+    for (int j = 0; j < 2; ++j) host_store<G>(out + 32 * (5 * i + 3 + j), m[j]);
+  }
+}
+
+extern "C" long host_sums_lanes(const int32_t* a, const int32_t* b, const int32_t* c, int32_t* out, long n,
+                                int lanes) {
+  fq::lanes::lane_faults = 0;
+  if (lanes == 4) host_sums<4>(a, b, c, out, n);
+  else host_sums<8>(a, b, c, out, n);
   return fq::lanes::lane_faults;
 }
 """
@@ -234,6 +310,10 @@ def host_kernel_lib(tmp_path_factory):
     handle.host_fq_pow_lanes.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_long, ctypes.c_int, ctypes.c_void_p,
                                                                  ctypes.c_int]
     handle.host_fq_pow_lanes.restype = ctypes.c_long
+    handle.host_mont_mul_n.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_long] + [ctypes.c_int] * 3
+    handle.host_mont_mul_n.restype = ctypes.c_long
+    handle.host_sums_lanes.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_long, ctypes.c_int]
+    handle.host_sums_lanes.restype = ctypes.c_long
     return handle
 
 
@@ -271,9 +351,10 @@ POW_FQ2 = [tuple(_rand(2)) for _ in range(3)] + fq_plain.POW_EDGES[2]
 @pytest.mark.parametrize("exponent", list(fq_plain.EXPONENTS))
 @pytest.mark.parametrize("degree", [1, 2])
 def test_pow_chain_arithmetic_matches_integers_and_plain_versions(host_kernel_lib, degree, exponent):
-    """K5 (degree 1) and K6 (degree 2): fq.cuh's pow / fq2_pow on groups of
-    4 lanes, bit-exact against Python integers and the plain versions, with
-    no read of another lane's entry."""
+    """K5 (degree 1, groups of 4 lanes) and K6 (degree 2, groups of 8):
+    fq.cuh's pow / fq2_pow (its 4-bit window, the table in the host's
+    stand-in for shared memory), bit-exact against Python integers and the
+    plain versions, with no read of another lane's entry."""
     e = fq_plain.EXPONENTS[exponent]
     words = np.array([(e >> (32 * j)) & 0xFFFFFFFF for j in range(12)], dtype=np.uint32)
     ints = POW_FQ if degree == 1 else POW_FQ2
@@ -287,3 +368,49 @@ def test_pow_chain_arithmetic_matches_integers_and_plain_versions(host_kernel_li
     values = fq.from_limbs(out)
     want = [fq_plain.pow_int(x, e, degree) for x in ints]
     assert (list(values) if degree == 1 else [tuple(v) for v in values]) == want
+
+
+# a lazy sum's range: canonical values, p, and up to 2p - 1
+BATCH_EDGE = [0, 1, P - 1, P, 2 * P - 1]
+
+
+@pytest.mark.parametrize("split", [1, 2])
+@pytest.mark.parametrize("lanes", [4, 8])
+@pytest.mark.parametrize("m", [2, 3, 7])
+def test_batched_products_match_integers(host_kernel_lib, m, lanes, split):
+    """fq.cuh's mont_mul_n (split 1: M products interleaved on one group)
+    and mont_mul_split (split 2: the batch over two subgroups, each lane
+    handed the other's results as the card's shuffle hands them), each
+    product canonical and equal to a b / R mod p for operands below 2p
+    (every pair of 0, 1, p - 1, p and 2p - 1, and random values), with no
+    read of another lane's entry and every subgroup handed the same
+    results."""
+    pairs = [(x, y) for x in BATCH_EDGE for y in BATCH_EDGE]
+    pairs += [(x, y) for x, y in zip(_rand(2 * m), (v + P for v in _rand(2 * m)))]
+    pairs += [(0, 0)] * (-len(pairs) % m)
+    a = np.ascontiguousarray(fq.to_limbs([x for x, _ in pairs]))
+    b = np.ascontiguousarray(fq.to_limbs([y for _, y in pairs]))
+    out = np.zeros_like(a)
+    faults = host_kernel_lib.host_mont_mul_n(a.ctypes.data, b.ctypes.data, out.ctypes.data, len(pairs), m, lanes,
+                                             split)
+    assert faults == 0, f"{faults} lane faults: a read of another lane's entry, or subgroups handed different results"
+    assert list(fq.from_limbs(out)) == [x * y * RINV % P for x, y in pairs]
+
+
+@pytest.mark.parametrize("lanes", [4, 8])
+def test_batched_sums_and_lazy_sums_into_products(host_kernel_lib, lanes):
+    """fq.cuh's sums batch: kAdd and kSub canonical, kLazyAdd the exact
+    unreduced a + b (up to 2p - 2); the lazy sum fed into mont_mul_n (times a
+    canonical value and squared) comes out canonical."""
+    a, b, ai, bi = A, B, AI, BI
+    ci = _rand(len(ai) - 1) + [P - 1]
+    c = np.ascontiguousarray(fq.to_limbs(ci))
+    out = np.zeros((len(ai), 5, 32), dtype=np.int32)
+    faults = host_kernel_lib.host_sums_lanes(np.ascontiguousarray(a).ctypes.data, np.ascontiguousarray(b).ctypes.data,
+                                             c.ctypes.data, out.ctypes.data, len(ai), lanes)
+    assert faults == 0, f"{faults} reads of another lane's entry: the card would read its own"
+    got = fq.from_limbs(out)
+    assert max(x + y for x, y in zip(ai, bi)) == 2 * P - 2  # the extreme lazy sum is among them
+    for i, (x, y, z) in enumerate(zip(ai, bi, ci)):
+        s = x + y
+        assert list(got[i]) == [s % P, (x - y) % P, s, s * z * RINV % P, s * s * RINV % P], i
