@@ -5,23 +5,29 @@
 Phases, each raising on any mismatch:
 
 0. build: nvcc for sm_90a on every source of ops/csrc (sha256.cu, fq.cu,
-   fq_pow.cu, curve.cu, probe.cu), one process each, all started together.
+   fq_pow.cu, curve.cu, fq_inv.cu, probe.cu), one process each, all started
+   together.
 1. env: torch/CUDA versions, the card's name and power limit; the liveness
    probe (probe.cu, ``x + 1`` on (8, 128) int32) against its plain version.
 2. kernels: K1 (sha256_blocks) and K2 (sha256_raw_blocks) on 2^20 random
    blocks, bit-exact against their plain PyTorch versions on the card and
-   against hashlib on a sample; merkle_reduce / merkle_levels / item_roots
+   against hashlib on a sample, timed by CUDA events and by the profiler's
+   device time (three windows), beside a bound from the instructions of
+   their SASS per pipe (``sass_pipes``); merkle_reduce / merkle_levels / item_roots
    over 2^20 chunks against loops of the plain version. K3 (fq_mul) and K4
    (fq_addsub, all three op codes) on random canonical field elements and
    edge values at 4,608 and 16,384 elements: the main path's lane-group
    kernels and the one-thread kernels kept for measurement, bit-exact
    against their plain versions and against Python integers on a sample,
    with a stride-0 operand in either position. K5 (fq_pow) and K6
-   (fq2_pow), the pow chains, at 260 and 16,385 elements for each of the
+   (fq2_pow), the pow chains, at 1, 260 and 16,385 elements for each of the
    four exponents ((p+1)/4, (p-1)/2, (p-3)/4, p-2) on random values and
-   edge values: bit-exact against their plain versions on the card and
-   against Python integers on a sample. K7 (g1_mul_static) and K8
-   (g2_mul_static), the static scalar ladders, at 1, 130, 260 and 16,385
+   edge values (in Fq every value of the K3/K4 edge pairs, 0 included):
+   bit-exact against their plain versions on the card and against Python
+   integers on a sample. K9 (fq_inv), the inversion by binary GCD, at 1,
+   260 and 16,385 elements on the same Fq values: bit-exact against its
+   plain version (Fermat's a^(p-2)) and Python integers. K7
+   (g1_mul_static) and K8 (g2_mul_static), the static scalar ladders, at 1, 130, 260 and 16,385
    points for k = |x| and a random k, on random multiples of the
    generators and the edge points (infinity, points outside the
    r-torsion, the G1 3-torsion points): bit-exact against their plain
@@ -42,11 +48,11 @@ Phases, each raising on any mismatch:
    runs each under a deferred BLS verifier with the torch backend on the
    card: ONE flush per block verifies its ~130 checks (pubkey decode,
    signature decompression, hash-to-G2, aggregation, Miller loops, final
-   exponentiation, all on K3-K8). Every row must hold, a sample of rows
+   exponentiation, all on K3-K9). Every row must hold, a sample of rows
    must be decided the same by the host oracle, and the post-state root
    must equal the host's at every slot. Each flush is timed from its call
    to its last result (checks/s); the first is traced under torch.profiler
-   for the card's busy share. Each flush must make exactly the K3-K8
+   for the card's busy share. Each flush must make exactly the K3-K9
    launches of ``FLUSH_LAUNCHES``; the launch-size histogram of the
    first untraced flush is printed. Then a tampered block (one
    attestation signed over another message): the card must reject exactly
@@ -60,8 +66,10 @@ Phases, each raising on any mismatch:
    product), in turns with the same chain as a loop of K3/K4 launches:
    device time and wall time a chain. K7/K8 likewise by |x|, at 1 point and
    every size a flush launched them, in turns with the ladder as a loop of
-   K3/K4 launches. The kernels line gives each
-   at its most frequent size.
+   K3/K4 launches. K9 at 1 element, every size a flush launched it and
+   16,385, in turns with K5 at p - 2 (the chain it replaced), beside a
+   bound from its SASS per pipe, as K1/K2's. The kernels
+   line gives each at its most frequent size.
 
 Prints the whole report as one ``[report]`` JSON line, then one JSON line
 of kernel records, the card's name and power limit, and last
@@ -73,9 +81,12 @@ from __future__ import annotations
 import argparse
 import hashlib
 import json
+import re
+import statistics
 import subprocess
 import sys
 import time
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -89,7 +100,7 @@ sys.path.insert(0, str(ROOT))
 from consensus_specs_tpu_torch import harness, probe  # noqa: E402
 from consensus_specs_tpu_torch.crypto import bls  # noqa: E402
 from consensus_specs_tpu_torch.crypto.bls import ciphersuite  # noqa: E402
-from consensus_specs_tpu_torch.ops import bls_torch, fq, fq_cuda, fq_plain, tower  # noqa: E402
+from consensus_specs_tpu_torch.ops import bls_torch, cuda_build, fq, fq_cuda, fq_plain, tower  # noqa: E402
 from consensus_specs_tpu_torch.ops import curve_torch as cj  # noqa: E402
 from consensus_specs_tpu_torch.ops import ladder_checks as lc  # noqa: E402
 from consensus_specs_tpu_torch.ops import sha256 as dev  # noqa: E402
@@ -100,14 +111,25 @@ SOURCE = "consensus_specs_tpu_torch/ops/csrc/sha256.cu"
 FQ_SOURCE = "consensus_specs_tpu_torch/ops/csrc/fq.cu"
 FQ_POW_SOURCE = "consensus_specs_tpu_torch/ops/csrc/fq_pow.cu"
 CURVE_SOURCE = "consensus_specs_tpu_torch/ops/csrc/curve.cu"
+FQ_INV_SOURCE = "consensus_specs_tpu_torch/ops/csrc/fq_inv.cu"
 PROBE_SOURCE = "consensus_specs_tpu_torch/ops/csrc/probe.cu"
-# 32-bit integer instructions per message, counted from the round
-# structure of csrc/sha256.cu: a round is 6 funnel-shift rotates, 4 LOP3
-# (two 3-way XORs, choose, majority) and 4 adds (14); a scheduled word is
-# 4 rotates/shifts, 2 LOP3 and 2 IADD3 (10); 8 feed-forward adds per
-# compression; 24 byte permutes for the swaps.
-K2_INT_OPS = 64 * 14 + 48 * 10 + 8 + 24  # data block only: 1,408
-K1_INT_OPS = K2_INT_OPS + 64 * 14 + 8  # plus the constant padding block: 2,312
+# K1/K2's and K9's bounds count the instructions a thread issues, per
+# pipe, in the SASS of this run's build (``sass_pipes``): K1 and K2 are
+# straight-line code after a bounds check, K9 one loop of K9_ROUNDS rounds
+# (fq.cuh kInvRounds). The mangled names of their kernels:
+SHA256_SASS = {"sha256_blocks": "sha256_kernelILb1E", "sha256_raw_blocks": "sha256_kernelILb0E"}
+K9_SASS, K9_ROUNDS = "fq_inv_kernel", 37
+# Hopper's pipes a clock per SM (4 schedulers): each scheduler issues one
+# warp instruction a clock (128 thread instructions an SM); the ALU pipe
+# (integer adds, logic, shifts, compares, selects, byte permutes) and the
+# FMA pipe (IMAD and IMUL in every form, FP32 arithmetic) each take 16
+# lanes a scheduler (64 an SM). Other instructions (loads, stores,
+# branches, moves, uniform-datapath ones) count against the issue rate
+# only. An IMAD.WIDE counts once on the FMA pipe: the least time it takes.
+ISSUE_PER_SM_CLOCK, PIPE_PER_SM_CLOCK = 128, 64
+SASS_ALU = {"IADD3", "LOP3", "SHF", "ISETP", "SEL", "LEA", "PRMT", "IMNMX", "IABS", "PLOP3", "FSEL", "FSETP",
+            "SGXT", "BMSK"}
+SASS_FMA = {"IMAD", "IMUL", "FFMA", "FMUL", "FADD", "HFMA2", "HMUL2", "HADD2"}
 # 32-bit integer instructions per field element: the work of the algorithm,
 # counted once from the one-thread form in csrc/fq.cuh and kept whatever
 # kernel implements it (the lane-group kernels run more instructions in
@@ -144,9 +166,13 @@ INT32_LANES_PER_SM = 64  # Hopper SM: 64 INT32 results per clock
 # those: 556 K3 and 1,022 K4 launches a G1 ladder, 556 and 2,134 a G2
 # ladder. Each ladder is now one K7 or K8 launch, so K3 3,958 - 5 x 556 =
 # 1,178, K4 17,508 - (2 x 1,022 + 3 x 2,134) = 9,062: 10,240 K3/K4
-# launches and 15 chain and ladder launches.
-FLUSH_LAUNCHES = {"fq_mul": 1178, "fq_addsub": 9062, "fq_pow": 6, "fq2_pow": 4, "g1_mul_static": 2,
-                  "g2_mul_static": 3}
+# launches and 15 chain and ladder launches. Of the 6 Fq chains, the 4
+# inversions (fq.inv: tower.fq2_inv in hash-to-G2, jac_to_affine of the
+# hashed points and of the aggregate keys, tower.fq12_inv in the final
+# exponentiation) are each one K9 launch now; K5 keeps the Legendre test's
+# (p - 1) / 2 and fq_sqrt's (p + 1) / 4.
+FLUSH_LAUNCHES = {"fq_mul": 1178, "fq_addsub": 9062, "fq_pow": 2, "fq2_pow": 4, "g1_mul_static": 2,
+                  "g2_mul_static": 3, "fq_inv": 4}
 DEFAULT_VALIDATORS = 1 << 19
 
 P = fq.P_INT
@@ -174,12 +200,56 @@ class Card:
         props = torch.cuda.get_device_properties(0)
         self.sms = props.multi_processor_count
         self.max_sm_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
-        self.int_ops_per_s = self.sms * INT32_LANES_PER_SM * self.max_sm_mhz * 1e6
 
     def bound_ms(self, messages: int, ops_per_message: int, nbytes: int) -> tuple:
-        ops_ms = messages * ops_per_message / self.int_ops_per_s * 1e3
+        """The bound of ``messages`` of ``ops_per_message`` 32-bit integer
+        operations each, all on one pool of 64 a clock per SM, and ``nbytes``
+        of device memory traffic."""
+        return self.cycles_bound_ms(messages * ops_per_message / INT32_LANES_PER_SM, nbytes)
+
+    def sass_bound_ms(self, messages: int, sass: dict, nbytes: int) -> tuple:
+        """The bound of ``messages`` threads, each issuing ``sass``
+        (``sass_pipes``), and ``nbytes`` of device memory traffic."""
+        return self.cycles_bound_ms(messages * sass["sm_cycles"], nbytes)
+
+    def cycles_bound_ms(self, sm_cycles: float, nbytes: int) -> tuple:
+        ops_ms = sm_cycles / (self.sms * self.max_sm_mhz * 1e6) * 1e3
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def sass_pipes(lib: Path, symbol: str, trips: int = 1, loops: int = 0) -> dict:
+    """The instructions one thread of the kernel whose mangled name holds
+    ``symbol`` issues, per pipe, from ``cuobjdump -sass`` of ``lib``: the
+    instructions of each of its ``loops`` loops (a branch back to an
+    earlier address; the function has no other) ``trips`` times, the rest
+    once, predicated ones as issued, the padding after the end (NOP, the
+    branch to itself) not. ``sm_cycles`` is the least an SM takes for it:
+    the largest of the ALU and FMA pipes' counts over 64 and all the
+    instructions over 128 (``SASS_ALU``, ``SASS_FMA``)."""
+    cuobjdump = Path(cuda_build.nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True, check=True).stdout
+    funcs = [f for f in re.split(r"^\s*Function : ", text, flags=re.M)[1:] if symbol in f.split("\n", 1)[0]]
+    require(len(funcs) == 1, f"{len(funcs)} functions named like {symbol} in the SASS of {lib}")
+    code = []
+    for a, op, args in re.findall(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);",
+                                  funcs[0]):
+        target = re.search(r"0x([0-9a-f]+)", args) if op.split(".")[0] == "BRA" else None
+        require(target is not None or op.split(".")[0] != "BRA", f"{symbol}: a branch without an address: {op}{args}")
+        code.append((int(a, 16), op, int(target.group(1), 16) if target else None))
+    back = [(target, addr) for addr, _, target in code if target is not None and target < addr]
+    require(len(back) == loops, f"{symbol}: {len(back)} loops in the SASS, expected {loops}")
+    histogram = Counter()
+    for addr, op, target in code:
+        if op != "NOP" and target != addr:
+            histogram[op] += trips if any(lo <= addr <= hi for lo, hi in back) else 1
+    alu = sum(n for op, n in histogram.items() if op.split(".")[0] in SASS_ALU)
+    fma = sum(n for op, n in histogram.items() if op.split(".")[0] in SASS_FMA)
+    issue = sum(histogram.values())
+    cycles = {"alu": alu / PIPE_PER_SM_CLOCK, "fma": fma / PIPE_PER_SM_CLOCK, "issue": issue / ISSUE_PER_SM_CLOCK}
+    by = max(cycles, key=cycles.get)
+    return {"alu": alu, "fma": fma, "issue": issue, "sm_cycles": cycles[by], "bound_by_pipe": by,
+            "histogram": dict(histogram.most_common())}
 
 
 def cuda_ms(fn, reps: int = 20) -> float:
@@ -209,15 +279,18 @@ def traced(run) -> list:
     return [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
-def device_ms_turns(fns: dict, reps: int = 20, windows: int = 3) -> dict:
+def device_ms_turns(fns: dict, reps: int = 20, windows: int = 3, tries: int = 9) -> dict:
     """Mean device time of one launch of each kernel in ``fns`` (a
     substring of its symbol -> a call that launches it), the calls made in
     turns in one profiler window: in order on even rounds, reversed on odd
-    ones. A small kernel's CUDA-event time per call is the host's time to
-    enqueue it; this is the time the card spends in it. CUPTI may still
-    drop events at a buffer edge: a window that saw fewer than half of any
-    kernel's launches is measured again, up to ``windows`` times, and then
-    the phase fails."""
+    ones; the median over ``windows`` windows. A small kernel's CUDA-event
+    time per call is the host's time to enqueue it; this is the time the
+    card spends in it. CUPTI may drop events at a buffer edge, often the
+    first launches of a short window: a window that saw fewer than half
+    of any kernel's launches is measured again, up to ``tries`` windows
+    in all, and then the phase fails. The median, since one window's
+    times have been seen off by one factor for all its kernels (1.4x and
+    0.83x in two windows running after each other)."""
     order = list(fns)
 
     def run():
@@ -225,18 +298,22 @@ def device_ms_turns(fns: dict, reps: int = 20, windows: int = 3) -> dict:
             for k in order if r % 2 == 0 else order[::-1]:
                 fns[k]()
 
-    for window in range(1, windows + 1):
+    kept = []
+    for window in range(1, tries + 1):
         averages = traced(run)
         events = {k: [e for e in averages if k in e.key] for k in fns}
         counts = {k: sum(e.count for e in ev) for k, ev in events.items()}
-        if min(counts.values()) >= reps // 2:
-            return {k: sum(e.self_device_time_total for e in ev) / counts[k] / 1e3 for k, ev in events.items()}
-        print(f"[profiler] window {window} of {windows} saw {counts} launches of {reps} calls each", flush=True)
-    raise AssertionError(f"the profiler saw too few launches in {windows} windows: {counts} of {reps} calls each")
+        if min(counts.values()) >= max(1, reps // 2):
+            kept.append({k: sum(e.self_device_time_total for e in ev) / counts[k] / 1e3 for k, ev in events.items()})
+            if len(kept) == windows:
+                return {k: statistics.median(w[k] for w in kept) for k in fns}
+        else:
+            print(f"[profiler] window {window} of {tries} saw {counts} launches of {reps} calls each", flush=True)
+    raise AssertionError(f"the profiler saw enough launches in {len(kept)} of {tries} windows, {windows} needed")
 
 
-def device_ms(fn, kernel: str, reps: int = 20) -> float:
-    return device_ms_turns({kernel: fn}, reps)[kernel]
+def device_ms(fn, kernel: str, reps: int = 20, windows: int = 3) -> float:
+    return device_ms_turns({kernel: fn}, reps, windows)[kernel]
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -251,11 +328,12 @@ def require(cond: bool, what: str) -> None:
 def phase_build(report: dict) -> None:
     """One nvcc per source, all started together."""
     t0 = time.perf_counter()
-    builds = (sha256_cuda.build, fq_cuda.build, fq_cuda.build_pow, fq_cuda.build_curve, probe.build)
+    builds = (sha256_cuda.build, fq_cuda.build, fq_cuda.build_pow, fq_cuda.build_curve, fq_cuda.build_inv,
+              probe.build)
     with ThreadPoolExecutor(max_workers=len(builds)) as pool:
         libs = list(pool.map(lambda build: build(verbose=True), builds))
     report["build_s"] = time.perf_counter() - t0
-    print(f"[build] {SOURCE}, {FQ_SOURCE}, {FQ_POW_SOURCE}, {CURVE_SOURCE}, {PROBE_SOURCE} in "
+    print(f"[build] {SOURCE}, {FQ_SOURCE}, {FQ_POW_SOURCE}, {CURVE_SOURCE}, {FQ_INV_SOURCE}, {PROBE_SOURCE} in "
           f"{report['build_s']:.1f}s: "
           f"{[lib.name for lib in libs]}", flush=True)
 
@@ -385,17 +463,20 @@ def phase_fq_timing(report: dict, card: "Card", seed: int, hist: dict) -> None:
     report["fq_timing"] = out
 
 
-POW_SIZES = [260, 16385]  # a flush's 2 x 130 rows, a decode's 16,385 keys
-# K5/K6: the wrapper, the plain version, the JAX functions replaced, and
-# the exponent each is timed with (its callers' longest: the time barely
-# depends on which)
+POW_SIZES = [1, 260, 16385]  # one element, a flush's 2 x 130 rows, a decode's 16,385 keys
+# K5/K6: the wrapper, the plain version, the JAX function replaced, the
+# exponent each is timed with (its main-path callers' longest: the time
+# barely depends on which) and the exponents of its turns (K5: both of its
+# flush's chains)
 POW = {
-    "fq_pow": {"degree": 1, "kernel": fq_cuda.fq_pow, "plain": fq_plain.pow_bits, "timed": "inv",
-               "replaces": "consensus_specs_tpu/ops/curve_jax.py:282",
-               "also_replaces": "consensus_specs_tpu/ops/fq.py:201"},
+    "fq_pow": {"degree": 1, "kernel": fq_cuda.fq_pow, "plain": fq_plain.pow_bits, "timed": "legendre",
+               "turns": ("legendre", "sqrt"), "replaces": "consensus_specs_tpu/ops/curve_jax.py:282"},
     "fq2_pow": {"degree": 2, "kernel": fq_cuda.fq2_pow, "plain": fq_plain.fq2_pow_bits, "timed": "legendre",
-                "replaces": "consensus_specs_tpu/ops/curve_jax.py:294"},
+                "turns": ("legendre",), "replaces": "consensus_specs_tpu/ops/curve_jax.py:294"},
 }
+# Fq values the K5 and K9 checks end on: every value of the K3/K4 edge
+# pairs (0 included) and pow's edge values (1, p - 1, R mod p)
+FQ_EDGES = list(dict.fromkeys([v for pair in EDGE_PAIRS for v in pair] + fq_plain.POW_EDGES[1]))
 
 
 def resident_int_ops(products: int, sums: int, elements: int) -> int:
@@ -408,22 +489,23 @@ def resident_int_ops(products: int, sums: int, elements: int) -> int:
 
 def chain_work(name: str, e: int) -> tuple:
     """(Montgomery products, field sums, serial, rounds) of one element's
-    chain, as fq.cuh computes it. K5: a square at every bit and a product
-    at every set bit, each its own round. K6: the 4-bit window (fq2_pow):
-    14 Fq2 products for the table, then 4 squares for each nibble below
-    the top one and a product at each nonzero one, each square or product
-    one batched round. The bound counts an Fq2 square as 2 Fq products and
-    3 sums, an Fq2 product at Karatsuba's 3 and 5, the least the function
-    needs (the kernel takes 4 and 2). serial: the Fq products one after
-    another on the bit-serial walk, as K5 runs them and K6 ran them before
-    its batches. At (p - 1) / 2: K6 1,064 products, 1,648 sums, 1,447
-    serial, 480 rounds; K5 609 products, 609 serial and rounds."""
+    chain, as fq.cuh computes it. Both walk the 4-bit window (pow,
+    fq2_pow): 14 products for the table, then 4 squares for each nibble
+    below the top one and a product at each nonzero one, each square or
+    product one round (K5: one Fq product; K6: one batch of Fq products).
+    The bound counts an Fq2 square as 2 Fq products and 3 sums, an Fq2
+    product at Karatsuba's 3 and 5, the least the function needs (the
+    kernel takes 4 and 2). serial: the Fq products one after another on the
+    bit-serial walk (a square at every bit and a product at every set bit),
+    as K5 ran them before this window and K6 before its batches. At (p - 1)
+    / 2: K6 1,064 products, 1,648 sums, 1,447 serial, 480 rounds; K5 480
+    products and rounds, 609 serial."""
     bits, ones = e.bit_length(), bin(e).count("1")
-    if name == "fq_pow":
-        return bits + ones, 0, bits + ones, bits + ones
     nibbles = (bits + 3) // 4
     nonzero = sum(1 for i in range(nibbles - 1) if (e >> 4 * i) & 15)
     squares, products = 4 * (nibbles - 1), 14 + nonzero
+    if name == "fq_pow":
+        return squares + products, 0, bits + ones, squares + products
     return (2 * squares + 3 * products, 3 * squares + 5 * products, 2 * bits + 3 * ones,
             squares + products)
 
@@ -448,9 +530,21 @@ def loop_chain(name: str, a: torch.Tensor, bits: list) -> torch.Tensor:
 
 def pow_operand(n: int, degree: int, rng, edges: bool = True) -> tuple:
     """n elements of Fq (degree 1) or Fq2 on the card, random, with the
-    edge values as the last rows where n has room; and their integers."""
-    ints = fq_plain.pow_values(n, degree, rng, edges)
+    edge values (Fq: ``FQ_EDGES``) as the last rows where n has room; and
+    their integers."""
+    if degree == 2:
+        ints = fq_plain.pow_values(n, degree, rng, edges)
+    else:
+        tail = FQ_EDGES if edges and n >= 2 * len(FQ_EDGES) else []
+        ints = [int.from_bytes(rng.bytes(48), "big") % P for _ in range(n - len(tail))] + tail
     return torch.from_numpy(fq.to_limbs(ints)).cuda(), ints
+
+
+def edge_rows(n: int, degree: int) -> int:
+    """How many of ``pow_operand``'s last rows are edge values."""
+    if degree == 2:
+        return len(fq_plain.POW_EDGES[2]) if n >= 16 else 0
+    return len(FQ_EDGES) if n >= 2 * len(FQ_EDGES) else 0
 
 
 def phase_pow_kernels(report: dict, seed: int, sizes: dict, label: str) -> None:
@@ -464,7 +558,7 @@ def phase_pow_kernels(report: dict, seed: int, sizes: dict, label: str) -> None:
         degree = k["degree"]
         for n in sizes[name]:
             a, ints = pow_operand(n, degree, rng)
-            edges = len(fq_plain.POW_EDGES[degree]) if n >= 16 else 0
+            edges = edge_rows(n, degree)
             sample = sorted(set(range(0, n, max(1, n // 64))) | set(range(n - edges, n)))
             for exp_name, e in fq_plain.EXPONENTS.items():
                 bits = fq_plain.bits_msb(e)
@@ -490,9 +584,8 @@ def loop_turns(symbol: str, new, old, reps: int, windows: int = 3) -> dict:
     loop's: every kernel it launched, copies included), and wall time a
     call on the host's clock, from its call to its result, in a second
     round of turns without the profiler. CUPTI may drop events: a window
-    that saw fewer than half of the kernel's launches (as
-    ``device_ms_turns`` asks) or 90% of the loop's K3/K4 launches is
-    measured again, up to ``windows`` times."""
+    that saw fewer than half of the kernel's launches or 90% of the
+    loop's K3/K4 launches is measured again, up to ``windows`` times."""
     before = sum(fq_cuda.launches[k] for k in ("fq_mul", "fq_addsub"))
     old()
     per_loop = sum(fq_cuda.launches[k] for k in ("fq_mul", "fq_addsub")) - before
@@ -530,51 +623,118 @@ def loop_turns(symbol: str, new, old, reps: int, windows: int = 3) -> dict:
 
 def phase_pow_timing(report: dict, card: "Card", seed: int, hist: dict) -> None:
     """K5/K6 at 1 element and at every size a flush launched them (``hist``:
-    elements -> launches), each in turns with the loop of K3/K4 launches it
-    replaced, beside its bounds: operations (``resident_int_ops`` of the
-    chain's products and sums, times n), bytes (each element read and
-    written once), the launch floor, and a latency estimate: the chain's
-    depth in batched product rounds x one product's latency, read from K5
-    at 1 element. For K5 that is its own time at 1 element, a floor for it
-    at larger n as K7/K8's is; for K6 it is an estimate only, since K6's
-    round (a batch of sums and products on two subgroups, then a shuffle)
-    is not K5's lone product, and nothing shows it takes at least as long.
-    Each kernel's record is taken at its most frequent size, with its time
-    per round."""
+    elements -> launches), for each exponent of their turns, each in turns
+    with the loop of K3/K4 launches it replaced, beside its bounds:
+    operations (``resident_int_ops`` of the chain's products and sums,
+    times n), bytes (each element read and written once), the launch floor,
+    and a latency estimate: the chain's depth in product rounds x one
+    product's latency, read from K5 at 1 element. For K5 that is its own
+    time at 1 element, a floor for it at larger n as K7/K8's is; for K6 it
+    is an estimate only, since K6's round (a batch of sums and products on
+    two subgroups, then a shuffle) is not K5's lone product, and nothing
+    shows it takes at least as long. Each kernel's record is taken at its
+    most frequent size with its timed exponent, with its time per round."""
     rng = np.random.default_rng([seed, 7])
     floor = report["probe"]["ms"]
     out, product_ms = {}, None
     for name, k in POW.items():
-        e = fq_plain.EXPONENTS[k["timed"]]
-        bits = fq_plain.bits_msb(e)
-        products, sums, serial, depth = chain_work(name, e)
-        top = sorted(hist[name], key=lambda n: (-hist[name][n], n))
-        by_size = {}
-        for n in dict.fromkeys([1] + sorted(hist[name])):
-            a, _ = pow_operand(n, k["degree"], rng, edges=False)
-            t = loop_turns(f"{name}_kernel", lambda: k["kernel"](a, bits), lambda: loop_chain(name, a, bits),
-                           reps=4 if n > 1 else 6)
-            if name == "fq_pow" and n == 1:
-                product_ms = t["ms"] / depth
-            bound, bound_by = card.bound_ms(n, resident_int_ops(products, sums, k["degree"]),
-                                            2 * 128 * k["degree"] * n)
-            by_size[n] = {**t, "bound_ms": bound, "bound_by": bound_by, "latency_estimate_ms": depth * product_ms,
-                          "flush_launches": hist[name].get(n, 0), "serial": serial, "rounds": depth,
-                          "us_per_round": t["ms"] * 1e3 / depth}
-            print(f"[pow_timing] {name} at {n} elements ({hist[name].get(n, 0)} launches a flush, {k['timed']}): "
-                  f"{t['ms'] * 1e3:.1f} us on the card, {t['wall_ms']:.3f} ms a chain; the loop of "
-                  f"{t['loop_launches']} K3/K4 launches {t['loop_device_ms'] * 1e3:.1f} us on the card "
-                  f"({t['loop_k3k4_device_ms'] * 1e3:.1f} in K3/K4), {t['loop_wall_ms']:.3f} ms a chain; bound "
-                  f"{bound * 1e3:.2f} us ({bound_by}), latency estimate {depth * product_ms * 1e3:.1f} us "
-                  f"({products} products, {serial} serial, {depth} batched rounds: "
-                  f"{t['ms'] * 1e3 / depth:.3f} us a round), launch floor {floor * 1e3:.3f} us", flush=True)
-        n = top[0]
+        by_exponent = {}
+        for exponent in k["turns"]:
+            e = fq_plain.EXPONENTS[exponent]
+            bits = fq_plain.bits_msb(e)
+            products, sums, serial, depth = chain_work(name, e)
+            by_size = by_exponent[exponent] = {}
+            for n in dict.fromkeys([1] + sorted(hist[name])):
+                a, _ = pow_operand(n, k["degree"], rng, edges=False)
+                t = loop_turns(f"{name}_kernel", lambda: k["kernel"](a, bits), lambda: loop_chain(name, a, bits),
+                               reps=4 if n > 1 else 6)
+                if name == "fq_pow" and n == 1 and exponent == k["timed"]:
+                    product_ms = t["ms"] / depth
+                bound, bound_by = card.bound_ms(n, resident_int_ops(products, sums, k["degree"]),
+                                                2 * 128 * k["degree"] * n)
+                by_size[n] = {**t, "bound_ms": bound, "bound_by": bound_by,
+                              "latency_estimate_ms": depth * product_ms, "flush_launches": hist[name].get(n, 0),
+                              "serial": serial, "rounds": depth, "us_per_round": t["ms"] * 1e3 / depth}
+                print(f"[pow_timing] {name} at {n} elements ({hist[name].get(n, 0)} launches a flush, {exponent}): "
+                      f"{t['ms'] * 1e3:.1f} us on the card, {t['wall_ms']:.3f} ms a chain; the loop of "
+                      f"{t['loop_launches']} K3/K4 launches {t['loop_device_ms'] * 1e3:.1f} us on the card "
+                      f"({t['loop_k3k4_device_ms'] * 1e3:.1f} in K3/K4), {t['loop_wall_ms']:.3f} ms a chain; bound "
+                      f"{bound * 1e3:.2f} us ({bound_by}), latency estimate {depth * product_ms * 1e3:.1f} us "
+                      f"({products} products, {serial} serial, {depth} rounds: "
+                      f"{t['ms'] * 1e3 / depth:.3f} us a round), launch floor {floor * 1e3:.3f} us", flush=True)
+        n = sorted(hist[name], key=lambda v: (-hist[name][v], v))[0]
+        bits = fq_plain.bits_msb(fq_plain.EXPONENTS[k["timed"]])
         a, _ = pow_operand(n, k["degree"], rng, edges=False)
+        timed = by_exponent[k["timed"]]
         out[name] = {"elements": n, "exponent": k["timed"], "plain_ms": cuda_ms(lambda: k["plain"](a, bits), reps=2),
-                     "library_ms": None, "floor_ms": floor, "by_size": by_size,
-                     **{key: by_size[n][key] for key in ("ms", "bound_ms", "bound_by", "latency_estimate_ms",
-                                                         "serial", "rounds", "us_per_round")}}
+                     "library_ms": None, "floor_ms": floor, "by_size": timed, "by_exponent": by_exponent,
+                     **{key: timed[n][key] for key in ("ms", "bound_ms", "bound_by", "latency_estimate_ms",
+                                                       "serial", "rounds", "us_per_round")}}
     report["pow_timing"] = out
+
+
+INV_REPLACES = "consensus_specs_tpu/ops/fq.py:201"
+P_MINUS_2_BITS = fq_plain.bits_msb(P - 2)
+
+
+def phase_inv_kernels(report: dict, seed: int, sizes: list, label: str) -> None:
+    """K9 bit-exact against its plain version (Fermat's a^(p-2) on the
+    card) at each of ``sizes`` elements, on random values with
+    ``FQ_EDGES`` as the last rows where n has room, and against Python
+    integers on a sample and every edge row. ``report["fq_checks"]`` keeps
+    its largest error."""
+    rng = np.random.default_rng([seed, 11])
+    errs = report.setdefault("fq_checks", {})
+    for n in sizes:
+        a, ints = pow_operand(n, 1, rng)
+        got = fq_cuda.fq_inv(a)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, fq_plain.pow_bits(a, P_MINUS_2_BITS))
+        require(err == 0, f"fq_inv disagrees with its plain version at {n} (max abs err {err})")
+        sample = sorted(set(range(0, n, max(1, n // 64))) | set(range(n - edge_rows(n, 1), n)))
+        require(list(fq.from_limbs(got[sample].cpu().numpy())) == [fq_plain.pow_int(ints[i], P - 2, 1)
+                                                                   for i in sample],
+                f"fq_inv disagrees with Python integers at {n}")
+        errs["fq_inv"] = max(errs.get("fq_inv", 0), err)
+    report.setdefault("inv_checked_sizes", []).append(sizes)
+    print(f"[kernels] K9 ({label}): bit-exact against Fermat's a^(p-2) at {sizes} elements, {len(FQ_EDGES)} edge "
+          f"values where n has room, Python integers on a sample: {errs['fq_inv']}", flush=True)
+
+
+def phase_inv_timing(report: dict, card: "Card", seed: int, hist: dict) -> None:
+    """K9 at 1 element, at every size a flush launched it (``hist``) and at
+    16,385, in turns with K5 at p - 2 (the chain it replaced) in one
+    profiler window, beside its bounds: operations (the SASS counts of
+    ``sass_pipes`` times n), bytes (each element read and written once), the launch floor, and the
+    latency floor: its own time at 1 element (one thread's chain of
+    dependent steps, the card otherwise idle). The record is taken at its
+    most frequent flush size."""
+    rng = np.random.default_rng([seed, 12])
+    floor = report["probe"]["ms"]
+    by_size = {}
+    sass = sass_pipes(fq_cuda.build_inv(), K9_SASS, trips=K9_ROUNDS, loops=1)
+    print(f"[inv_timing] fq_inv SASS an element: {sass['alu']} ALU, {sass['fma']} FMA, {sass['issue']} issued; "
+          f"bound by {sass['bound_by_pipe']}: {sass['histogram']}", flush=True)
+    for n in dict.fromkeys([1] + sorted(hist["fq_inv"]) + [16385]):
+        a, _ = pow_operand(n, 1, rng, edges=False)
+        ms = device_ms_turns({"fq_inv_kernel": lambda: fq_cuda.fq_inv(a),
+                              "fq_pow_kernel": lambda: fq_cuda.fq_pow(a, P_MINUS_2_BITS)}, reps=6)
+        bound, bound_by = card.sass_bound_ms(n, sass, 2 * 128 * n)
+        by_size[n] = {"ms": ms["fq_inv_kernel"], "k5_p_minus_2_ms": ms["fq_pow_kernel"],
+                      "ratio": ms["fq_inv_kernel"] / ms["fq_pow_kernel"], "bound_ms": bound, "bound_by": bound_by,
+                      "latency_floor_ms": by_size[1]["ms"] if n > 1 else ms["fq_inv_kernel"],
+                      "flush_launches": hist["fq_inv"].get(n, 0)}
+        r = by_size[n]
+        print(f"[inv_timing] fq_inv at {n} elements ({r['flush_launches']} launches a flush): {r['ms'] * 1e3:.1f} us "
+              f"on the card; K5 at p - 2 in turns {r['k5_p_minus_2_ms'] * 1e3:.1f} us ({r['ratio']:.3f}x); bound "
+              f"{bound * 1e3:.3f} us ({bound_by}), latency floor "
+              f"{r['latency_floor_ms'] * 1e3:.1f} us, launch floor {floor * 1e3:.3f} us", flush=True)
+    n = sorted(hist["fq_inv"], key=lambda v: (-hist["fq_inv"][v], v))[0]
+    a, _ = pow_operand(n, 1, rng, edges=False)
+    report["inv_timing"] = {"fq_inv": {
+        "elements": n, "plain_ms": cuda_ms(lambda: fq_plain.pow_bits(a, P_MINUS_2_BITS), reps=2),
+        "library_ms": None, "floor_ms": floor, "by_size": by_size, "sass": sass,
+        **{key: by_size[n][key] for key in ("ms", "bound_ms", "bound_by", "latency_floor_ms", "k5_p_minus_2_ms")}}}
 
 
 # K7/K8: the wrapper, the group, and the adapter of the ladder's K3/K4
@@ -697,13 +857,19 @@ def phase_ladder_timing(report: dict, card: "Card", seed: int, hist: dict) -> No
     report["ladder_timing"] = out
 
 
+# K1/K2's kernel symbols (sha256.cu's template, with and without the
+# padding block), as the profiler names them
+SHA256_SYMBOLS = {"sha256_blocks": "sha256_kernel<true>", "sha256_raw_blocks": "sha256_kernel<false>"}
+
+
 def phase_kernels(report: dict, card: Card, seed: int, k2_rows: int) -> None:
     g = torch.Generator(device="cuda").manual_seed(seed)
     n = 1 << 20
     blocks = torch.randint(-(2**31), 2**31, (n, 16), dtype=torch.int32, device="cuda", generator=g)
     sample = blocks[:4096].cpu().numpy().tobytes()
     out = {}
-    for name, ops, rows in (("sha256_blocks", K1_INT_OPS, n), ("sha256_raw_blocks", K2_INT_OPS, k2_rows)):
+    sass = {name: sass_pipes(sha256_cuda.build(), symbol) for name, symbol in SHA256_SASS.items()}
+    for name, rows in (("sha256_blocks", n), ("sha256_raw_blocks", k2_rows)):
         kern, plain = getattr(sha256_cuda, name), getattr(sha256_plain, name)
         got, want = kern(blocks), plain(blocks)
         torch.cuda.synchronize()
@@ -714,16 +880,24 @@ def phase_kernels(report: dict, card: Card, seed: int, k2_rows: int) -> None:
             ref = b"".join(hashlib.sha256(sample[64 * i : 64 * i + 64]).digest() for i in range(4096))
             require(digests == ref, f"{name} disagrees with hashlib")
         x = blocks[:rows]
-        ms = cuda_ms(lambda: kern(x))
+        event_ms = cuda_ms(lambda: kern(x))
+        # the device time of a launch from the profiler, in three windows
+        # (each after a discarded warm-up step), as the other kernels are timed
+        windows = [device_ms(lambda: kern(x), SHA256_SYMBOLS[name], reps=100, windows=1) for _ in range(3)]
+        ms = sum(windows) / len(windows)
         plain_ms = cuda_ms(lambda: plain(x), reps=3)
-        bound, bound_by = card.bound_ms(rows, ops, 96 * rows)
+        bound, bound_by = card.sass_bound_ms(rows, sass[name], 96 * rows)
         out[name] = {
-            "rows": rows, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
-            "gb_per_s": 64 * rows / ms / 1e6,
+            "rows": rows, "max_abs_err": err, "ms": ms, "device_ms_windows": windows, "event_ms": event_ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
+            "gb_per_s": 64 * rows / ms / 1e6, "sass": sass[name],
         }
-        print(f"[kernels] {name}: {rows} rows {ms:.4f} ms ({64 * rows / ms / 1e6:.1f} GB/s of input), "
-              f"plain {plain_ms:.3f} ms, bound {bound:.4f} ms ({bound_by})", flush=True)
+        print(f"[kernels] {name}: {rows} rows {ms:.4f} ms on the card (profiler windows "
+              f"{[round(w, 4) for w in windows]}; CUDA events {event_ms:.4f} ms a call), "
+              f"{64 * rows / ms / 1e6:.1f} GB/s of input, plain {plain_ms:.3f} ms, bound {bound:.4f} ms ({bound_by}, "
+              f"{bound / ms:.1%} of it; SASS a message {sass[name]['alu']} ALU, {sass[name]['fma']} FMA, "
+              f"{sass[name]['issue']} issued, bound by {sass[name]['bound_by_pipe']}: {sass[name]['histogram']})",
+              flush=True)
     # K2 against hashlib: pad 4096 short messages on the host as the seam does
     msgs = [bytes(sample[64 * i : 64 * i + 37]) for i in range(4096)]
     require(dev.hash_small_device(msgs) == [hashlib.sha256(m).digest() for m in msgs],
@@ -745,7 +919,7 @@ def phase_kernels(report: dict, card: Card, seed: int, k2_rows: int) -> None:
     require(torch.equal(dev.merkle_reduce(chunks, levels), want_levels[-1][0]), "merkle_reduce disagrees")
     require(torch.equal(dev.item_roots(chunks, 3), want_levels[2]), "item_roots disagrees")
     reduce_ms = cuda_ms(lambda: dev.merkle_reduce(chunks, levels))
-    bound, bound_by = card.bound_ms(n - 1, K1_INT_OPS, 32 * n + 32)
+    bound, bound_by = card.sass_bound_ms(n - 1, sass["sha256_blocks"], 32 * n + 32)
     out["merkle_reduce"] = {"chunks": n, "ms": reduce_ms, "bound_ms": bound, "bound_by": bound_by}
     print(f"[kernels] merkle_reduce 2^20 chunks: {reduce_ms:.4f} ms (bound {bound:.4f} ms)", flush=True)
     report["kernels"] = out
@@ -939,7 +1113,7 @@ def bls_phase(report: dict, spec, states: tuple, slots: int, flush_launches) -> 
         print(f"[bls] slot {rec['slot']}: {checks} checks all true, block {block_s:.3f}s, flush {flush_s:.3f}s "
               f"({rec['checks_per_s']:.1f} checks/s{', traced' if rec['traced'] else ''}; stages sum to "
               f"{rec['stage_sum_s']:.3f}s), stages "
-              f"{ {k: round(v, 3) for k, v in rec['stage_s'].items()} }, K3-K8 launches {rec['launches']}, "
+              f"{ {k: round(v, 3) for k, v in rec['stage_s'].items()} }, K3-K9 launches {rec['launches']}, "
               f"{rec['pubkeys_decoded']} pubkeys decoded, oracle agrees on {len(sampled)} rows", flush=True)
     counts = dev.counters()
     launches = {k: sum(r["launches"][k] for r in per_block) for k in fq_cuda.KERNELS}
@@ -956,7 +1130,7 @@ def bls_phase(report: dict, spec, states: tuple, slots: int, flush_launches) -> 
         "checks_per_s": sum(r["checks"] for r in timed) / sum(r["flush_s"] for r in timed),
     }
     print(f"[bls] {slots} signed blocks of {n_att[0]} attestations verified on the card; "
-          f"{report['bls']['checks_per_s']:.2f} checks/s over the untraced flushes; K3-K8 launches {launches}; "
+          f"{report['bls']['checks_per_s']:.2f} checks/s over the untraced flushes; K3-K9 launches {launches}; "
           f"card idle {report['bls']['flush_device_idle_share']:.4%} of the traced flush", flush=True)
     return {"launches": {**counts["launches"], **launches}}, hist
 
@@ -1026,13 +1200,15 @@ def kernel_records(report: dict, main_counts: tuple) -> list:
         ("fq2_pow", POW["fq2_pow"]["replaces"], FQ_POW_SOURCE),
         ("g1_mul_static", LADDER_REPLACES, CURVE_SOURCE),
         ("g2_mul_static", LADDER_REPLACES, CURVE_SOURCE),
+        ("fq_inv", INV_REPLACES, FQ_INV_SOURCE),
         ("add_one", "tools/pallas_probe.py:46", PROBE_SOURCE),
     ):
         if name == "add_one":
             k, launches = report["probe"], report["probe"]["launches"]
         else:
             if name in fq_cuda.KERNELS:
-                timing = report["ladder_timing" if name in LADDER else "pow_timing" if name in POW else "fq_timing"]
+                timing = report["ladder_timing" if name in LADDER else "pow_timing" if name in POW else
+                                "inv_timing" if name == "fq_inv" else "fq_timing"]
                 k = {**timing[name], "max_abs_err": report["fq_checks"][name]}
             else:
                 k = report["kernels"][name]
@@ -1044,11 +1220,10 @@ def kernel_records(report: dict, main_counts: tuple) -> list:
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k["library_ms"], **({"elements": k["elements"]} if name in fq_cuda.KERNELS else {}),
         }
-        if name in LADDER:  # K7/K8: the ladder's latency floor; K5/K6: the chain's latency estimate
+        if name in LADDER or name == "fq_inv":  # K7-K9: the latency floor; K5/K6: the chain's latency estimate
             rec["latency_floor_ms"] = k["latency_floor_ms"]
         if name in POW:
             rec["latency_estimate_ms"] = k["latency_estimate_ms"]
-            rec.update({"also_replaces": POW[name]["also_replaces"]} if "also_replaces" in POW.get(name, {}) else {})
         records.append(rec)
     for name, k in report["fq_timing"].items():
         if k["measurement_only"]:
@@ -1083,7 +1258,8 @@ def main() -> int:
     k2_rows = spec.SHUFFLE_ROUND_COUNT * (1 + n_blocks)  # the shuffle's one sha256_many_small call
     phase_kernels(report, card, args.seed, k2_rows)
     phase_fq_kernels(report, args.seed, [128 * 2 * 18, 16384], "an Fq12 product of 128 Miller loops, a decode")
-    phase_pow_kernels(report, args.seed, {name: POW_SIZES for name in POW}, "a flush's 260, a decode's 16,385")
+    phase_pow_kernels(report, args.seed, {name: POW_SIZES for name in POW}, "1, a flush's 260, a decode's 16,385")
+    phase_inv_kernels(report, args.seed, POW_SIZES, "1, a flush's 260, a decode's 16,385")
     phase_ladder_kernels(report, args.seed, {name: LADDER_SIZES for name in LADDER},
                          "1, a flush's 130 and 260, a decode's 16,385")
 
@@ -1113,10 +1289,12 @@ def main() -> int:
     phase_fq_kernels(report, args.seed, sorted(set(hist["fq_mul"]) | set(hist["fq_addsub"])),
                      "every size a flush launched")
     phase_pow_kernels(report, args.seed, {name: sorted(hist[name]) for name in POW}, "every size a flush launched")
+    phase_inv_kernels(report, args.seed, sorted(hist["fq_inv"]), "every size a flush launched")
     phase_ladder_kernels(report, args.seed, {name: sorted(hist[name]) for name in LADDER},
                          "every size a flush launched")
     phase_fq_timing(report, card, args.seed, hist)
     phase_pow_timing(report, card, args.seed, hist)
+    phase_inv_timing(report, card, args.seed, hist)
     phase_ladder_timing(report, card, args.seed, hist)
     report["total_s"] = time.perf_counter() - t_start
 

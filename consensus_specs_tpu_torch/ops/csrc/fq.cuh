@@ -163,6 +163,194 @@ FQ_HD void sub_mod(uint32_t r[kWords], const uint32_t a[kWords], const uint32_t 
 }
 
 // ---------------------------------------------------------------------------
+// Inversion by binary GCD (K9's body): Bernstein and Yang's divsteps
+// ("Fast constant-time gcd computation and modular inversion", IACR ePrint
+// 2019/266), in the layout of libsecp256k1's modinv32: signed 30-bit limbs,
+// 30 divsteps a round on the low words of f and g alone, collected in a 2x2
+// transition matrix t with (f', g') = t (f, g) / 2^30, then applied to the
+// whole of f and g and, modulo p, to the coefficients d and e. Each round
+// divides d and e by 2^30 modulo p (the matrix's low bits choose the
+// multiple of p that clears them), so the invariants f s = d x and
+// g s = e x (mod p) hold from the start (f = p, g = x, d = 0, e = s) to the
+// end, where g = 0 and f = +-1: d = +-s / x. The iteration count is fixed
+// and every step is branch-free, so the threads of a warp never diverge.
+//
+// The count: BY's Theorem 11.2 (their `iterations(d)`) bounds the divsteps
+// that take g to 0 by floor((49 d + 57) / 17) for d-bit inputs, d >= 46:
+// here f = p and g = x < p, d = 381, so 1,101. kInvRounds rounds of 30
+// run 1,110. A divstep past that leaves g = 0, f unchanged and d the same
+// modulo p, so running past the bound is harmless.
+constexpr int kInvLimbs = 13;  // 13 x 30 = 390 bits; the top limb is signed
+constexpr int kInvRounds = 37;
+constexpr int32_t kM30 = 0x3fffffff;
+
+// bits 30 i .. 30 i + 29 of p (the top limb takes the rest)
+FQ_HD constexpr int32_t p_limb30(int i) {
+  return (int32_t)((((uint64_t)(30 * i / 32 + 1 < kWords ? p_word(30 * i / 32 + 1) : 0u) << 32 |
+                     p_word(30 * i / 32)) >> (30 * i % 32)) & (i + 1 < kInvLimbs ? (uint64_t)kM30 : ~0ull));
+}
+
+// x^-1 mod 2^32 for odd x (Newton's iteration: each step doubles the bits)
+FQ_HD constexpr uint32_t inv_mod_2_32(uint32_t x) {
+  uint32_t y = x;  // right mod 2^3: x x = 1 mod 8 for odd x
+  for (int k = 0; k < 4; ++k) y *= 2u - x * y;
+  return y;
+}
+
+constexpr uint32_t kPInv30 = inv_mod_2_32(0xffffaaabu) & (uint32_t)kM30;  // p^-1 mod 2^30
+
+// s in 30-bit limbs: K9's start value of e, passed by the wrapper
+struct InvStart {
+  int32_t v[kInvLimbs];
+};
+
+// the divsteps' 2x2 matrix, entries times 2^30: |u| + |v|, |q| + |r| <= 2^30
+struct Trans {
+  int32_t u, v, q, r;
+};
+
+// 30 divsteps on the low 32 bits of f and g (exact for 30 steps: each
+// step looks only at g's lowest bit, then halves g). zeta = -delta. A step:
+// if delta > 0 and g is odd, (delta, f, g) <- (1 - delta, g, (g - f) / 2);
+// else (delta, f, g) <- (1 + delta, f, (g + (g mod 2) f) / 2).
+FQ_HD int32_t divsteps30(int32_t zeta, uint32_t f, uint32_t g, Trans& t) {
+  int32_t u = 1, v = 0, q = 0, r = 1;
+#pragma unroll
+  for (int i = 0; i < 30; ++i) {
+    const int32_t c1 = zeta >> 31;             // all ones where delta > 0
+    const int32_t c2 = -(int32_t)(g & 1u);     // all ones where g is odd
+    const uint32_t x = (f ^ (uint32_t)c1) - (uint32_t)c1;  // -f or f
+    const int32_t y = (u ^ c1) - c1, z = (v ^ c1) - c1;
+    g += x & (uint32_t)c2;
+    q += y & c2;
+    r += z & c2;
+    const int32_t c = c1 & c2;                 // the swap: f takes the old g
+    zeta = (zeta ^ c) - 1 - c;
+    f += g & (uint32_t)c;
+    u += q & c;
+    v += r & c;
+    g >>= 1;
+    u *= 2;
+    v *= 2;
+  }
+  t = {u, v, q, r};
+  return zeta;
+}
+
+// (f, g) <- t (f, g) / 2^30, exact (the low 30 bits of both sums are 0)
+FQ_HD void update_fg30(int32_t f[kInvLimbs], int32_t g[kInvLimbs], const Trans& t) {
+  int64_t cf = (int64_t)t.u * f[0] + (int64_t)t.v * g[0];
+  int64_t cg = (int64_t)t.q * f[0] + (int64_t)t.r * g[0];
+  cf >>= 30;
+  cg >>= 30;
+#pragma unroll
+  for (int i = 1; i < kInvLimbs; ++i) {
+    cf += (int64_t)t.u * f[i] + (int64_t)t.v * g[i];
+    cg += (int64_t)t.q * f[i] + (int64_t)t.r * g[i];
+    f[i - 1] = (int32_t)cf & kM30;
+    g[i - 1] = (int32_t)cg & kM30;
+    cf >>= 30;
+    cg >>= 30;
+  }
+  f[kInvLimbs - 1] = (int32_t)cf;
+  g[kInvLimbs - 1] = (int32_t)cg;
+}
+
+// (d, e) <- (t (d, e) + p (md, me)) / 2^30, md and me chosen to clear the
+// low 30 bits; d and e stay in (-2p, p) (libsecp256k1 modinv32's
+// update_de_30: md and me start at the column sums of t where d or e is
+// negative)
+FQ_HD void update_de30(int32_t d[kInvLimbs], int32_t e[kInvLimbs], const Trans& t) {
+  const int32_t sd = d[kInvLimbs - 1] >> 31, se = e[kInvLimbs - 1] >> 31;
+  int32_t md = (t.u & sd) + (t.v & se), me = (t.q & sd) + (t.r & se);
+  int64_t cd = (int64_t)t.u * d[0] + (int64_t)t.v * e[0];
+  int64_t ce = (int64_t)t.q * d[0] + (int64_t)t.r * e[0];
+  md -= (int32_t)((kPInv30 * (uint32_t)cd + (uint32_t)md) & (uint32_t)kM30);
+  me -= (int32_t)((kPInv30 * (uint32_t)ce + (uint32_t)me) & (uint32_t)kM30);
+  cd += (int64_t)p_limb30(0) * md;
+  ce += (int64_t)p_limb30(0) * me;
+  cd >>= 30;
+  ce >>= 30;
+#pragma unroll
+  for (int i = 1; i < kInvLimbs; ++i) {
+    cd += (int64_t)t.u * d[i] + (int64_t)t.v * e[i] + (int64_t)p_limb30(i) * md;
+    ce += (int64_t)t.q * d[i] + (int64_t)t.r * e[i] + (int64_t)p_limb30(i) * me;
+    d[i - 1] = (int32_t)cd & kM30;
+    e[i - 1] = (int32_t)ce & kM30;
+    cd >>= 30;
+    ce >>= 30;
+  }
+  d[kInvLimbs - 1] = (int32_t)cd;
+  e[kInvLimbs - 1] = (int32_t)ce;
+}
+
+// carry every limb's bits above 30 into the next (limbs in (-2^31, 2^31))
+FQ_HD void carry30(int32_t r[kInvLimbs]) {
+#pragma unroll
+  for (int i = 0; i + 1 < kInvLimbs; ++i) {
+    r[i + 1] += r[i] >> 30;
+    r[i] &= kM30;
+  }
+}
+
+// r in (-2p, p) -> sign r mod p in [0, p), sign the top limb of +-1
+// (libsecp256k1 modinv32's normalize_30)
+FQ_HD void normalize30(int32_t r[kInvLimbs], int32_t sign) {
+  int32_t add = r[kInvLimbs - 1] >> 31;
+  const int32_t neg = sign >> 31;
+#pragma unroll
+  for (int i = 0; i < kInvLimbs; ++i) r[i] = ((r[i] + (p_limb30(i) & add)) ^ neg) - neg;  // (-p, p)
+  carry30(r);
+  add = r[kInvLimbs - 1] >> 31;
+#pragma unroll
+  for (int i = 0; i < kInvLimbs; ++i) r[i] += p_limb30(i) & add;  // [0, p)
+  carry30(r);
+}
+
+// K9's body: out = s / x mod p (0 for x = 0) on the port's limb layout,
+// 32 canonical 12-bit limbs in and out; every 5 limbs (60 bits) are two
+// 30-bit limbs. With x = a R (Montgomery form) and s = R^2 mod p, out is
+// a^-1 R, the Montgomery form of the inverse: the Montgomery product by
+// R^3 mod p that would correct s = 1's result rides in e's start value.
+FQ_HD void inv(uint32_t out[kLimbs], const uint32_t x[kLimbs], const InvStart& s) {
+  int32_t f[kInvLimbs], g[kInvLimbs], d[kInvLimbs], e[kInvLimbs];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    const uint32_t* l = x + 5 * k;
+    g[2 * k] = (int32_t)(l[0] | l[1] << 12 | (l[2] & 0x3fu) << 24);
+    g[2 * k + 1] = (int32_t)(l[2] >> 6 | l[3] << 6 | l[4] << 18);
+  }
+  g[12] = (int32_t)(x[30] | x[31] << 12);
+#pragma unroll
+  for (int i = 0; i < kInvLimbs; ++i) {
+    f[i] = p_limb30(i);
+    d[i] = 0;
+    e[i] = s.v[i];
+  }
+  int32_t zeta = -1;  // delta = 1
+#pragma unroll 1
+  for (int round = 0; round < kInvRounds; ++round) {
+    Trans t;
+    zeta = divsteps30(zeta, (uint32_t)f[0] | (uint32_t)f[1] << 30, (uint32_t)g[0] | (uint32_t)g[1] << 30, t);
+    update_fg30(f, g, t);
+    update_de30(d, e, t);
+  }
+  normalize30(d, f[kInvLimbs - 1]);
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    uint32_t* l = out + 5 * k;
+    const uint32_t lo = (uint32_t)d[2 * k], hi = (uint32_t)d[2 * k + 1];
+    l[0] = lo & 0xfffu;
+    l[1] = (lo >> 12) & 0xfffu;
+    l[2] = lo >> 24 | (hi & 0x3fu) << 6;
+    l[3] = (hi >> 6) & 0xfffu;
+    l[4] = hi >> 18;
+  }
+  out[30] = (uint32_t)d[12] & 0xfffu;
+  out[31] = (uint32_t)d[12] >> 12;
+}
+
+// ---------------------------------------------------------------------------
 // Lane groups. An element is spread over G lanes (G = 4 or 8; G divides
 // 32, so a warp holds 32 / G elements): lane l holds the D = 16 / G digits
 // D l .. D l + D - 1, which are the limbs 2 D l .. 2 D l + 2 D - 1 of the
@@ -650,11 +838,21 @@ FQ_GD void sums(Lanes<uint32_t, G> r[M][kDigits / G], const Lanes<uint32_t, G> a
 // algorithm with the rows of all M interleaved: row i of every product
 // issues before row i + 1 of any, so each row's two dependent exchanges (m
 // from lane 0, the shift from the next lane) overlap the other products'
-// multiply-adds. Each product keeps mont_mul's digit bounds (its operands
-// in canonical digits) and its final carries and conditional subtraction,
-// so with a_j b_j < p R (both below 2p, see kLazyAdd) each r_j is
-// canonical. r may alias a or b.
-template <int G, int M>
+// multiply-adds. Each product keeps mont_mul's digit bounds and its final
+// carries and conditional subtraction, so with a_j b_j < p R (both below
+// 2p, see kLazyAdd) each r_j is canonical. r may alias a or b.
+//
+// One option, Chain, for a lone product in a dependent chain (K5's):
+// - the G lanes' turns of rows are unrolled too, so that the compiler
+//   issues every broadcast of b's digits ahead of the row that takes it;
+// - the result is left below 2p, after the two passes of carries
+//   between lanes, without the carry-lookahead (settle) and the conditional
+//   subtraction: its digits are canonical but for each lane's lowest, below
+//   2^24 + 2^8. Only a product takes such a value: with digits below
+//   2^24 + 2^8 a row adds below 2^49 to a digit, so the running sum's
+//   digits stay below 2^54 as with canonical operands, and the value bound
+//   above holds. The chain settles and subtracts once, at its end.
+template <int G, int M, bool Chain = false>
 FQ_GD void mont_mul_n(Lanes<uint32_t, G> r[M][kDigits / G], const Lanes<uint32_t, G> a[M][kDigits / G],
                       const Lanes<uint32_t, G> b[M][kDigits / G]) {
   constexpr int D = kDigits / G;
@@ -667,12 +865,8 @@ FQ_GD void mont_mul_n(Lanes<uint32_t, G> r[M][kDigits / G], const Lanes<uint32_t
 #pragma unroll
       for (int k = 0; k < D; ++k) t[j][k][l] = 0;
   }
-  // the rows of a lane's D digits of b unrolled, the G lanes' turns not:
-  // the code of a batch stays small enough for the instruction cache
-#pragma unroll 1
-  for (int from = 0; from < G; ++from)
-#pragma unroll
-  for (int i = 0; i < D; ++i) {
+  // row i of lane `from`'s digits of b
+  auto row = [&](int from, int i) {
     Lanes<uint32_t, G> bi[M], m0[M], m[M], down[M];
 #pragma unroll
     for (int j = 0; j < M; ++j) bi[j] = broadcast<G>(b[j][i], from);
@@ -706,6 +900,19 @@ FQ_GD void mont_mul_n(Lanes<uint32_t, G> r[M][kDigits / G], const Lanes<uint32_t
         t[j][0][l] += carry;
       }
     }
+  };
+  if constexpr (Chain) {
+#pragma unroll
+    for (int from = 0; from < G; ++from)
+#pragma unroll
+      for (int i = 0; i < D; ++i) row(from, i);
+  } else {
+    // the rows of a lane's D digits of b unrolled, the G lanes' turns not:
+    // the code of a batch stays small enough for the instruction cache
+#pragma unroll 1
+    for (int from = 0; from < G; ++from)
+#pragma unroll
+      for (int i = 0; i < D; ++i) row(from, i);
   }
   // the carries as in mont_mul, every product's step together
   Lanes<uint32_t, G> d[M][D], c[M], q[M][D], zero[M][D], pp[M][D];
@@ -747,6 +954,13 @@ FQ_GD void mont_mul_n(Lanes<uint32_t, G> r[M][kDigits / G], const Lanes<uint32_t
         pp[j][k][l] = p[k][l];
       }
     }
+  }
+  if constexpr (Chain) {
+#pragma unroll
+    for (int j = 0; j < M; ++j)
+#pragma unroll
+      for (int k = 0; k < D; ++k) r[j][k] = d[j][k];
+    return;
   }
   carry_round<G, M, uniform(kCarryAdd, M)>(d, d, zero, top);  // settle: the sum is below 2p, top is 0
   carry_round<G, M, uniform(kCarrySub, M)>(q, d, pp, below);  // the conditional subtraction of p
@@ -884,19 +1098,6 @@ FQ_GD void load_one(Lanes<uint32_t, G> r[kDigits / G]) {
 
 FQ_HD bool exponent_bit(const Exponent& e, int i) { return (e.words[i / 32] >> (i % 32)) & 1u; }
 
-// K5's body: r = a^e in Montgomery form, square-and-multiply over e's bits
-// from the most significant, the product with a only at a set bit. The
-// exponent is uniform, so the branch is too (the JAX package selected with
-// jnp.where; both give the canonical residue). 0 maps to 0.
-template <int G>
-FQ_GD void pow(Lanes<uint32_t, G> r[kDigits / G], const Lanes<uint32_t, G> a[kDigits / G], const Exponent& e) {
-  load_one<G>(r);
-  for (int i = e.bits - 1; i >= 0; --i) {
-    mont_mul<G>(r, r, r);
-    if (exponent_bit(e, i)) mont_mul<G>(r, r, a);
-  }
-}
-
 FQ_HD constexpr int count_bits(unsigned x) {
   int n = 0;
   for (; x; x >>= 1) n += (int)(x & 1u);
@@ -1021,55 +1222,100 @@ FQ_GD void fq2_products(Lanes<uint32_t, G> r[M][2][kDigits / G], const Lanes<uin
 // bits 4 i .. 4 i + 3 of e
 FQ_HD uint32_t exponent_nibble(const Exponent& e, int i) { return (e.words[i / 8] >> (4 * (i % 8))) & 0xfu; }
 
-// A table of Entries Fq2 elements for each lane of a block, indexed by a
-// value that is the same on every lane of the warp. On the card it lies
-// in shared memory as rows of blockDim.x words, word (entry, half, digit)
-// of a thread in its column threadIdx.x: a lane reads only the words it
-// wrote itself (no exchange, no barrier) and a warp's 32 lanes hit 32
-// banks. Without nvcc it is an array of Lanes, which the host build holds
-// to the same rule (a read of another lane's entry counts in lane_faults).
-template <int G, int Entries>
-struct Fq2Table {
+// A table of Entries values for each lane of a block, each Parts Fq
+// elements (1: Fq, K5's; 2: Fq2, K6's), indexed by a value that is the
+// same on every lane of the warp. On the card it lies in shared memory as
+// rows of blockDim.x words, word (entry, part, digit) of a thread in its
+// column threadIdx.x: a lane reads only the words it wrote itself (no
+// exchange, no barrier) and a warp's 32 lanes hit 32 banks. Without nvcc
+// it is an array of Lanes, which the host build holds to the same rule (a
+// read of another lane's entry counts in lane_faults).
+template <int G, int Entries, int Parts>
+struct LaneTable {
   static constexpr int D = kDigits / G;
 #if defined(__CUDACC__)
-  static constexpr int kWordsPerThread = Entries * 2 * D;
+  static constexpr int kWordsPerThread = Entries * Parts * D;
   uint32_t* words;  // kWordsPerThread rows of blockDim.x words
 
-  FQ_GD void store(int e, const Lanes<uint32_t, G> x[2][D]) {
+  FQ_GD void store(int e, const Lanes<uint32_t, G> x[Parts][D]) {
 #pragma unroll
-    for (int h = 0; h < 2; ++h)
+    for (int h = 0; h < Parts; ++h)
 #pragma unroll
-      for (int k = 0; k < D; ++k) words[((e * 2 + h) * D + k) * blockDim.x + threadIdx.x] = x[h][k].v;
+      for (int k = 0; k < D; ++k) words[((e * Parts + h) * D + k) * blockDim.x + threadIdx.x] = x[h][k].v;
   }
 
-  FQ_GD void load(Lanes<uint32_t, G> x[2][D], int e) const {
+  FQ_GD void load(Lanes<uint32_t, G> x[Parts][D], int e) const {
 #pragma unroll
-    for (int h = 0; h < 2; ++h)
+    for (int h = 0; h < Parts; ++h)
 #pragma unroll
-      for (int k = 0; k < D; ++k) x[h][k].v = words[((e * 2 + h) * D + k) * blockDim.x + threadIdx.x];
+      for (int k = 0; k < D; ++k) x[h][k].v = words[((e * Parts + h) * D + k) * blockDim.x + threadIdx.x];
   }
 #else
-  Lanes<uint32_t, G> v[Entries][2][D];
+  Lanes<uint32_t, G> v[Entries][Parts][D];
 
-  void store(int e, const Lanes<uint32_t, G> x[2][D]) {
+  void store(int e, const Lanes<uint32_t, G> x[Parts][D]) {
     FQ_LANES(l, G) {
-      for (int h = 0; h < 2; ++h)
+      for (int h = 0; h < Parts; ++h)
         for (int k = 0; k < D; ++k) v[e][h][k][l] = x[h][k][l];
     }
   }
 
-  void load(Lanes<uint32_t, G> x[2][D], int e) const {
+  void load(Lanes<uint32_t, G> x[Parts][D], int e) const {
     FQ_LANES(l, G) {
-      for (int h = 0; h < 2; ++h)
+      for (int h = 0; h < Parts; ++h)
         for (int k = 0; k < D; ++k) x[h][k][l] = v[e][h][k][l];
     }
   }
 #endif
 };
 
-// K6's window: 4 bits, a table of a^0 .. a^15
+template <int G, int Entries>
+using FqTable = LaneTable<G, Entries, 1>;
+template <int G, int Entries>
+using Fq2Table = LaneTable<G, Entries, 2>;
+
+// K5's and K6's window: 4 bits, a table of a^0 .. a^15
 constexpr int kWindowBits = 4;
 constexpr int kWindowEntries = 1 << kWindowBits;
+
+// K5's body: r = a^e in Montgomery form with a fixed 4-bit window, the
+// table in `table` (an FqTable of kWindowEntries). The table takes a^0 ..
+// a^15 (14 products); then from the top nibble of e down, 4 squares and,
+// at a nonzero nibble, one product with its table entry. For e = (p - 1) / 2
+// the chain is 14 + 376 + 90 = 480 products deep, against 609 on the
+// bit-serial walk (square at every bit, product at every set bit). The
+// exponent is uniform, so the branch and the table index are too. Every
+// product is a lone mont_mul_n for a chain (lazy and unrolled): the chain's
+// values stay below 2p and are made canonical once at the end. 0 maps to 0.
+template <int G, class Table>
+FQ_GD void pow(Lanes<uint32_t, G> r[kDigits / G], const Lanes<uint32_t, G> a[kDigits / G], const Exponent& e,
+               Table& table) {
+  constexpr int D = kDigits / G;
+  Lanes<uint32_t, G> acc[1][D], base[1][D];
+  load_one<G>(acc[0]);
+  table.store(0, acc);
+#pragma unroll
+  for (int k = 0; k < D; ++k) base[0][k] = acc[0][k] = a[k];
+  table.store(1, acc);
+#pragma unroll 1
+  for (int w = 2; w < kWindowEntries; ++w) {
+    mont_mul_n<G, 1, true>(acc, acc, base);
+    table.store(w, acc);
+  }
+  const int nibbles = (e.bits + kWindowBits - 1) / kWindowBits;
+  table.load(acc, nibbles > 0 ? (int)exponent_nibble(e, nibbles - 1) : 0);
+  for (int i = nibbles - 2; i >= 0; --i) {
+#pragma unroll 1
+    for (int s = 0; s < kWindowBits; ++s) mont_mul_n<G, 1, true>(acc, acc, acc);
+    const int w = (int)exponent_nibble(e, i);
+    if (w) {
+      table.load(base, w);
+      mont_mul_n<G, 1, true>(acc, acc, base);
+    }
+  }
+  settle<G>(acc[0]);  // below 2p, each lane's lowest digit below 2^24 + 2^8
+  cond_sub_p<G>(r, acc[0]);
+}
 
 // K6's body: r = a^e in Fq2 with a fixed 4-bit window, on S subgroups of
 // G lanes holding the same values (fq2_products' split). The table takes

@@ -56,7 +56,8 @@ def build(source: str, headers: Sequence[str] = (), verbose: bool = False) -> Pa
 def load(source: str, headers: Sequence[str], signatures: dict, error_fn: str) -> ctypes.CDLL:
     """Build (if needed) and load ``source``; ``signatures`` maps each C
     function to its ctypes argument types (all return int, a cudaError_t);
-    ``error_fn`` is the library's error-string function."""
+    ``error_fn`` is the library's error-string function, also bound as
+    ``lib.error_string``."""
     lib = ctypes.CDLL(str(build(source, headers)))
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)
@@ -65,4 +66,5 @@ def load(source: str, headers: Sequence[str], signatures: dict, error_fn: str) -
     err = getattr(lib, error_fn)
     err.argtypes = [ctypes.c_int]
     err.restype = ctypes.c_char_p
+    lib.error_string = err
     return lib

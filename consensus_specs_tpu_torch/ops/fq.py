@@ -7,12 +7,15 @@ broadcasts over the leading dimensions and returns canonical limbs, so
 limb tensors compare directly with the JAX package's arrays.
 
 The multiply and the add/sub/neg are the two kernels of ``csrc/fq.cu``,
-the static-exponent powers the two kernels of ``csrc/fq_pow.cu``:
+the static-exponent powers the two kernels of ``csrc/fq_pow.cu``, the
+inverse the kernel of ``csrc/fq_inv.cu``:
 
 - ``mul`` (K3 ``fq_mul``): the Montgomery product a b / R mod p;
 - ``add``/``sub``/``neg`` (K4 ``fq_addsub``);
 - ``pow_bits`` (K5 ``fq_pow``): a^e for a public exponent, one launch a
-  chain; ``inv`` is a^(p-2);
+  chain;
+- ``inv`` (K9 ``fq_inv``): a^-1 by binary GCD, one launch (its plain
+  version is Fermat's a^(p-2), ``pow_bits``'s);
 - ``fq2_pow_bits`` (K6 ``fq2_pow``): the same in Fq2, for the tower.
 
 On a CPU tensor each computes with its plain PyTorch version
@@ -155,9 +158,14 @@ _P_MINUS_2_BITS = [(P_INT - 2) >> i & 1 for i in range((P_INT - 2).bit_length() 
 
 
 def inv(a: torch.Tensor) -> torch.Tensor:
-    """a^-1 in Montgomery form by Fermat, a^(p-2) over the 381 exponent
-    bits. Maps 0 to 0."""
-    return pow_bits(a, _P_MINUS_2_BITS)
+    """a^-1 in Montgomery form; maps 0 to 0. On the card K9's binary GCD;
+    its plain version is Fermat's a^(p-2) over the 381 exponent bits, the
+    same canonical limbs."""
+    if a.device.type == "cpu":
+        return fq_plain.pow_bits(a, _P_MINUS_2_BITS)
+    if a.device.type == "cuda":
+        return fq_cuda.fq_inv(a)
+    raise ValueError(f"fq: no kernel for device {a.device}")
 
 
 def geq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

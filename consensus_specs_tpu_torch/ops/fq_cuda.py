@@ -1,9 +1,10 @@
 """Bind and launch the hand-written BLS12-381 kernels, each a lane-group
 kernel (a group of lanes of a warp per element): K3 ``fq_mul`` and K4
 ``fq_addsub`` (csrc/fq.cu), the static-exponent pow chains K5 ``fq_pow``
-(Fq) and K6 ``fq2_pow`` (Fq2), one launch a chain (csrc/fq_pow.cu), and
-the static scalar ladders K7 ``g1_mul_static`` and K8 ``g2_mul_static``,
-one launch a ladder (csrc/curve.cu).
+(Fq) and K6 ``fq2_pow`` (Fq2), one launch a chain (csrc/fq_pow.cu), the
+static scalar ladders K7 ``g1_mul_static`` and K8 ``g2_mul_static``, one
+launch a ladder (csrc/curve.cu), and the inversion K9 ``fq_inv`` by binary
+GCD, one thread an element (csrc/fq_inv.cu).
 
 Each source (with its device headers ``csrc/fq.cuh``, ``csrc/curve.cuh``)
 is built at first launch by ``cuda_build``; nothing is built when the
@@ -17,8 +18,9 @@ curve or tower constant) is read with stride 0, not materialised. There is
 no fallback: a build or launch failure raises. K5/K6 take one operand of
 any shape ``(..., 32)`` or ``(..., 2, 32)`` and the exponent as its bits
 from the most significant; each bit list is packed into words once and
-kept. K7/K8 take a Jacobian point ``(X, Y, Z)`` of such tensors (the three
-broadcast to one shape) and the scalar as a Python int.
+kept. K9 takes one operand of any shape ``(..., 32)``. K7/K8 take a
+Jacobian point ``(X, Y, Z)`` of such tensors (the three broadcast to one
+shape) and the scalar as a Python int.
 
 For measurement only, ``fq_mul_thread``/``fq_addsub_thread`` launch the
 one-thread kernels of the first port; nothing on the main path calls
@@ -35,7 +37,8 @@ import torch
 from . import cuda_build, fq_plain
 
 N_LIMBS = 32
-KERNELS = ("fq_mul", "fq_addsub", "fq_pow", "fq2_pow", "g1_mul_static", "g2_mul_static")  # the main path's
+KERNELS = ("fq_mul", "fq_addsub", "fq_pow", "fq2_pow", "g1_mul_static", "g2_mul_static",
+           "fq_inv")  # the main path's
 MEASURED = ("fq_mul_thread", "fq_addsub_thread")
 launches = dict.fromkeys(KERNELS + MEASURED, 0)
 sizes: dict = {k: {} for k in KERNELS + MEASURED}  # elements a launch -> launches
@@ -43,6 +46,7 @@ sizes: dict = {k: {} for k in KERNELS + MEASURED}  # elements a launch -> launch
 _lib = None
 _pow_lib = None
 _curve_lib = None
+_inv_lib = None
 _lock = threading.Lock()
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -52,6 +56,17 @@ _CURVE_HEADERS = ("fq.cuh", "curve.cuh")
 # the ctypes argument types of fq_pow.cu's and curve.cu's C launch functions
 POW_ARGTYPES = [_P, _P, _I64, ctypes.POINTER(ctypes.c_uint32), ctypes.c_int, _P]
 CURVE_ARGTYPES = [_P] * 6 + [_I64, ctypes.POINTER(ctypes.c_uint32), ctypes.c_int, _P]
+INV_ARGTYPES = [_P, _P, _I64, ctypes.POINTER(ctypes.c_int32), _P]
+
+# K9's start value of the GCD's coefficient e, s = R^2 mod p in 13 signed
+# 30-bit limbs (fq.cuh InvStart). The GCD on x = a R gives d = s / x, so
+# s = 1 would give (a R)^-1, to be corrected by one Montgomery product by
+# C = R^3 mod p (C / R = R^2); s = C / R makes that product at the start.
+_R, _PP = fq_plain.R_INT, fq_plain.P_INT
+INV_C = pow(_R, 3, _PP)
+INV_START_INT = INV_C * pow(_R, -1, _PP) % _PP
+INV_START = (ctypes.c_int32 * 13)(*((INV_START_INT >> (30 * j)) & (0x3FFFFFFF if j < 12 else -1) for j in range(13)))
+assert INV_START_INT == _R * _R % _PP and sum(v << (30 * j) for j, v in enumerate(INV_START)) == INV_START_INT
 
 
 def reset_counters() -> None:
@@ -73,6 +88,11 @@ def build_pow(verbose: bool = False) -> Path:
 def build_curve(verbose: bool = False) -> Path:
     """Compile csrc/curve.cu unless it is built already; returns the library."""
     return cuda_build.build("curve.cu", _CURVE_HEADERS, verbose=verbose)
+
+
+def build_inv(verbose: bool = False) -> Path:
+    """Compile csrc/fq_inv.cu unless it is built already; returns the library."""
+    return cuda_build.build("fq_inv.cu", ("fq.cuh",), verbose=verbose)
 
 
 def _load():
@@ -107,6 +127,15 @@ def _load_curve():
                                           "g2_mul_static_launch": CURVE_ARGTYPES},
                                          "curve_error_string")
     return _curve_lib
+
+
+def _load_inv():
+    global _inv_lib
+    with _lock:
+        if _inv_lib is None:
+            _inv_lib = cuda_build.load("fq_inv.cu", ("fq.cuh",), {"fq_inv_launch": INV_ARGTYPES},
+                                       "fq_inv_error_string")
+    return _inv_lib
 
 
 def _broadcast_shape(a: torch.Size, b: torch.Size) -> tuple:
@@ -190,14 +219,16 @@ def _exponent(bits) -> tuple:
     return hit
 
 
-def _pow(name: str, a: torch.Tensor, bits, degree: int) -> torch.Tensor:
+def _elementwise(name: str, a: torch.Tensor, degree: int, load, *extra) -> torch.Tensor:
+    """Launch ``<name>_launch(a, out, n, *extra, stream)`` of the library
+    ``load()`` on one operand of Fq (degree 1) or Fq2 elements of any
+    shape; returns ``out``."""
     tail = (N_LIMBS,) if degree == 1 else (2, N_LIMBS)
     if a.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got one on {a.device}")
     if a.dtype != torch.int32 or tuple(a.shape[-degree:]) != tail:
         raise ValueError(f"{name}: expected int32 (..., {', '.join(map(str, tail))}), "
                          f"got {a.dtype} {tuple(a.shape)}")
-    words, length = _exponent(bits)
     x = a.contiguous()
     if x.data_ptr() % 16:
         x = x.clone()
@@ -205,26 +236,32 @@ def _pow(name: str, a: torch.Tensor, bits, degree: int) -> torch.Tensor:
     n = out.numel() // (degree * N_LIMBS)
     if n == 0:
         return out
-    lib = _load_pow()
-    fn = getattr(lib, f"{name}_launch")
+    lib = load()
     with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), out.data_ptr(), n, words, length, torch.cuda.current_stream().cuda_stream)
+        rc = getattr(lib, f"{name}_launch")(x.data_ptr(), out.data_ptr(), n, *extra,
+                                            torch.cuda.current_stream().cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"{name} launch failed: {lib.fq_pow_error_string(rc).decode()}")
+        raise RuntimeError(f"{name} launch failed: {lib.error_string(rc).decode()}")
     launches[name] += 1
     sizes[name][n] = sizes[name].get(n, 0) + 1
     return out
 
 
+def fq_inv(a: torch.Tensor) -> torch.Tensor:
+    """K9: a^-1 in Fq (Montgomery form in and out) by binary GCD, one
+    launch for the batch; 0 maps to 0."""
+    return _elementwise("fq_inv", a, 1, _load_inv, INV_START)
+
+
 def fq_pow(a: torch.Tensor, exp_bits) -> torch.Tensor:
     """K5: a^e in Fq (Montgomery form), e as its bits from the most
     significant, one launch for the chain; 0 maps to 0."""
-    return _pow("fq_pow", a, exp_bits, 1)
+    return _elementwise("fq_pow", a, 1, _load_pow, *_exponent(exp_bits))
 
 
 def fq2_pow(a: torch.Tensor, exp_bits) -> torch.Tensor:
     """K6: a^e in Fq2 (``(..., 2, 32)``, u^2 = -1), one launch for the chain."""
-    return _pow("fq2_pow", a, exp_bits, 2)
+    return _elementwise("fq2_pow", a, 2, _load_pow, *_exponent(exp_bits))
 
 
 def _mul_static(name: str, pt, k: int, degree: int) -> tuple:

@@ -1,6 +1,6 @@
 """Time this checkout's K5-K8 kernels in turns with another checkout's.
 
-    python3 kernel_turns.py DIR [--seed 0]
+    python3 kernel_turns.py DIR [--seed 0] [--kernels fq_pow,...] [--sizes 1,130,...]
 
 DIR is another checkout of the repo, say the parent commit unpacked by
 ``git archive``. Its ``fq_pow.cu`` and ``curve.cu`` (and the headers they
@@ -9,10 +9,13 @@ flags, each kernel symbol renamed ``<name>_parent_kernel`` so that the
 profiler tells the two apart, and called through this checkout's C launch
 signatures (``fq_cuda.POW_ARGTYPES``/``CURVE_ARGTYPES``): the script
 refuses a DIR whose ``extern "C"`` declarations differ from this
-checkout's. At 1 element, at a BLS flush's 130 and 260 and at a decode's
-16,385, each pair first agrees bit for bit on the same inputs, then both
-are timed in turns in one profiler window (``chip_smoke.device_ms_turns``):
-K5 with p - 2, K6 with (p - 1) / 2, K7/K8 by |x|.
+checkout's. At 1 element, at a BLS flush's 130 and 260 and at a
+decode's 16,385, each pair first agrees bit for bit on the same inputs,
+then both are timed in turns (``chip_smoke.device_ms_turns``): K5 with
+(p - 1) / 2 and (p + 1) / 4, K6 with (p - 1) / 2, K7/K8 by |x|;
+``--kernels`` keeps the named ones, ``--sizes`` takes other element
+counts. A variant of a kernel is timed the same way, from a copy of this
+checkout with the variant's edit as DIR.
 
 Prints a line a kernel and size, the card's name and power limit, and last
 one JSON object of the device ms a launch, this checkout's and DIR's. Needs
@@ -47,7 +50,7 @@ SOURCES = {
     "curve.cu": (("fq.cuh", "curve.cuh"), ("g1_mul_static", "g2_mul_static"), "curve_error_string",
                  fq_cuda.CURVE_ARGTYPES),
 }
-SIZES = [1, 130, 260, 16385]
+SIZES = "1,130,260,16385"
 
 
 def c_api(path: Path) -> dict:
@@ -78,11 +81,14 @@ def build_parent(parent: Path, source: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(lib))
 
 
-def parent_kernels(parent: Path) -> dict:
-    """name -> DIR's build of K5-K8, called as this checkout's wrapper is: a
-    tensor and the exponent's bits, or a Jacobian point and k."""
+def parent_kernels(parent: Path, keep: list) -> dict:
+    """name -> DIR's build of the kernels in ``keep`` of K5-K8, called as
+    this checkout's wrapper is: a tensor and the exponent's bits, or a
+    Jacobian point and k."""
     calls = {}
     for source, (_, names, error_fn, argtypes) in SOURCES.items():
+        if not set(names) & set(keep):
+            continue
         lib = build_parent(parent, source)
         for name in names:
             launch = getattr(lib, f"{name}_launch")
@@ -114,24 +120,28 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("parent", type=Path, help="another checkout of the repo")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--kernels", default="fq_pow,fq2_pow,g1_mul_static,g2_mul_static")
+    ap.add_argument("--sizes", default=SIZES, help="element counts, comma-separated")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_turns: no CUDA device", file=sys.stderr)
         return 1
-    old = parent_kernels(args.parent.resolve())
+    keep, sizes = args.kernels.split(","), [int(n) for n in args.sizes.split(",")]
+    old = parent_kernels(args.parent.resolve(), keep)
     rng = np.random.default_rng([args.seed, 10])
     cases = []
     for name, k in smoke.POW.items():
-        bits = fq_plain.bits_msb(fq_plain.EXPONENTS[k["timed"]])
-        for n in SIZES:
-            a, _ = smoke.pow_operand(n, k["degree"], rng, edges=False)
-            cases.append((name, n, lambda f, a=a, bits=bits: f(a, bits), k["kernel"]))
+        for exponent in k["turns"]:
+            bits = fq_plain.bits_msb(fq_plain.EXPONENTS[exponent])
+            for n in sizes:
+                a, _ = smoke.pow_operand(n, k["degree"], rng, edges=False)
+                cases.append((name, f"{exponent}, {n}", lambda f, a=a, bits=bits: f(a, bits), k["kernel"]))
     for name, spec in smoke.LADDER.items():
-        for n in SIZES:
+        for n in sizes:
             pt, _ = lc.ladder_points(n, spec["g2"], rng, "cuda", distinct=8)
-            cases.append((name, n, lambda f, pt=pt: f(pt, cj.X_PARAM), spec["kernel"]))
+            cases.append((name, str(n), lambda f, pt=pt: f(pt, cj.X_PARAM), spec["kernel"]))
     out = {}
-    for name, n, call, new in cases:
+    for name, n, call, new in (c for c in cases if c[0] in keep):
         got, want = call(new), call(old[name])
         torch.cuda.synchronize()
         got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
@@ -140,7 +150,7 @@ def main() -> int:
         ms = smoke.device_ms_turns({f"{name}_kernel": lambda: call(new),
                                     f"{name}_parent_kernel": lambda: call(old[name])}, reps=6)
         rec = out.setdefault(name, {})[n] = {"ms": ms[f"{name}_kernel"], "parent_ms": ms[f"{name}_parent_kernel"]}
-        print(f"[turns] {name} at {n} elements: {rec['ms'] * 1e3:.1f} us on the card, the parent's "
+        print(f"[turns] {name} at {n} elements: {rec['ms'] * 1e3:.1f} us on the card, the other side's "
               f"{rec['parent_ms'] * 1e3:.1f} us ({rec['ms'] / rec['parent_ms']:.3f}x), bit-exact", flush=True)
     print(smoke.nvidia_smi("name,power.limit"))
     print(json.dumps({"parent": str(args.parent), "turns": out}))

@@ -1,7 +1,7 @@
 """The port's kernels on the card — SHA-256 (K1/K2), the base field
 (K3 fq_mul, K4 fq_addsub), the pow chains (K5 fq_pow, K6 fq2_pow), the
-static scalar ladders (K7 g1_mul_static, K8 g2_mul_static) and the
-liveness probe — held against their
+static scalar ladders (K7 g1_mul_static, K8 g2_mul_static), the inversion
+(K9 fq_inv) and the liveness probe — held against their
 plain PyTorch versions, hashlib and Python integers, and the Verify
 family on the card (scalar and batched) against the host oracle. These need
 a CUDA card and skip without one; on the card run them with
@@ -169,12 +169,66 @@ def test_seams_take_the_pow_kernels_on_the_card(card):
     a, _ = _pow_operand(4, 1, 9)
     a2, _ = _pow_operand(4, 2, 9)
     bits = fq_plain.bits_msb(fq_plain.EXPONENTS["sqrt_a1"])
+    sqrt_bits = fq_plain.bits_msb(fq_plain.EXPONENTS["sqrt"])
     before = dict(fq_cuda.launches)
-    x = fq.inv(a.to(card))
+    x = cj.fq_pow_bits(a.to(card), sqrt_bits)
     y = tower.fq2_pow_bits(a2.to(card), bits)
     assert fq_cuda.launches["fq_pow"] == before["fq_pow"] + 1 and fq_cuda.launches["fq2_pow"] == before["fq2_pow"] + 1
     assert fq_cuda.launches["fq_mul"] == before["fq_mul"] and fq_cuda.launches["fq_addsub"] == before["fq_addsub"]
-    assert torch.equal(x.cpu(), fq.inv(a)) and torch.equal(y.cpu(), tower.fq2_pow_bits(a2, bits))
+    assert torch.equal(x.cpu(), fq.pow_bits(a, sqrt_bits)) and torch.equal(y.cpu(), tower.fq2_pow_bits(a2, bits))
+
+
+# K9's inputs: random values, then the edge values (every value of the K3/K4
+# edge pairs, 0 included, and pow's edge values) where n has room
+_INV_EDGES = list(dict.fromkeys([v for pair in EDGE_PAIRS for v in pair] + fq_plain.POW_EDGES[1]))
+_P_MINUS_2 = fq_plain.bits_msb(P - 2)
+
+
+def _inv_operand(n, seed):
+    rng = np.random.default_rng(seed)
+    tail = _INV_EDGES if n >= 2 * len(_INV_EDGES) else []
+    ints = [int.from_bytes(rng.bytes(48), "big") % P for _ in range(n - len(tail))] + tail
+    return torch.from_numpy(fq.to_limbs(ints)), ints
+
+
+@pytest.mark.parametrize("n", [1, 130, 260, 16385])
+def test_inverse_kernel_matches_plain_version(card, n):
+    """K9: one launch, bit-exact against its plain version (Fermat's a^(p-2)
+    on the card) and, on a sample and every edge row, against Python
+    integers."""
+    a, ints = _inv_operand(n, n)
+    x = a.to(card)
+    before, sized = fq_cuda.launches["fq_inv"], fq_cuda.sizes["fq_inv"].get(n, 0)
+    got = fq_cuda.fq_inv(x)
+    torch.cuda.synchronize()
+    assert fq_cuda.launches["fq_inv"] == before + 1 and fq_cuda.sizes["fq_inv"][n] == sized + 1
+    assert torch.equal(got, fq_plain.pow_bits(x, _P_MINUS_2))
+    edges = len(_INV_EDGES) if n >= 2 * len(_INV_EDGES) else 0
+    sample = sorted(set(range(0, n, max(1, n // 64))) | set(range(n - edges, n)))
+    assert list(fq.from_limbs(got[sample].cpu())) == [fq_plain.pow_int(ints[i], P - 2, 1) for i in sample]
+
+
+def test_inverse_kernel_takes_any_shape(card):
+    a, _ = _inv_operand(8, 5)
+    one = a[:1].to(card)
+    for x in (one[0], one.expand(8, 32), a.to(card).view(2, 4, 32), a.to(card)[::2]):
+        got = fq_cuda.fq_inv(x)
+        assert got.shape == x.shape and torch.equal(got, fq_plain.pow_bits(x, _P_MINUS_2))
+
+
+def test_seams_take_the_inverse_kernel_on_the_card(card):
+    """fq.inv, tower.fq2_inv and jac_to_affine each launch K9 once and K5
+    not at all, with the limbs of their CPU runs."""
+    a, _ = _inv_operand(4, 9)
+    a2, _ = _pow_operand(4, 2, 9)
+    pt, _ = lc.ladder_points(4, False, np.random.default_rng(9), "cpu")
+    for call, arg in ((fq.inv, a), (tower.fq2_inv, a2), (lambda p: cj.jac_to_affine(cj.FQ, p), pt)):
+        before = dict(fq_cuda.launches)
+        got = call(arg.to(card) if isinstance(arg, torch.Tensor) else tuple(t.to(card) for t in arg))
+        assert fq_cuda.launches["fq_inv"] == before["fq_inv"] + 1 and fq_cuda.launches["fq_pow"] == before["fq_pow"]
+        want = call(arg)
+        for g, w in zip(got if isinstance(got, tuple) else (got,), want if isinstance(want, tuple) else (want,)):
+            assert torch.equal(g.cpu(), w)
 
 
 _LADDER = {False: ("g1_mul_static", cj.FQ), True: ("g2_mul_static", cj.FQ2)}

@@ -7,11 +7,11 @@ residues. Inputs are seeded numpy limb arrays handed to both.
 
 The kernels' own arithmetic (``csrc/fq.cuh``: the one-thread bodies with
 the 12-bit to 32-bit repacking at their boundary, the lane-group bodies of
-K3/K4 and of the K5/K6 chains, and the batches that K6 and the ladders are
+K3/K4 and of the K5/K6 chains, the batches that K6 and the ladders are
 built on, ``mont_mul_n`` and ``sums`` with its lazy sums, with a group's
-lanes run in lockstep over arrays) also compiles as plain C++; where a host
-C++ compiler is present it is built here and held against the plain
-versions and Python integers on the same inputs."""
+lanes run in lockstep over arrays, and K9's binary GCD) also compiles as
+plain C++; where a host C++ compiler is present it is built here and held
+against the plain versions and Python integers on the same inputs."""
 import ctypes
 import shutil
 import subprocess
@@ -23,7 +23,7 @@ import torch
 
 from consensus_specs_tpu.ops import curve_jax as jcurve
 from consensus_specs_tpu.ops import fq as jfq
-from consensus_specs_tpu_torch.ops import cuda_build, fq, fq_plain, tower
+from consensus_specs_tpu_torch.ops import cuda_build, fq, fq_cuda, fq_plain, tower
 
 P = fq.P_INT
 RINV = pow(1 << 384, -1, P)
@@ -151,6 +151,10 @@ void host_store(int32_t* dst, const fq::lanes::Lanes<uint32_t, G> r[fq::lanes::k
 }
 """
 
+# K5's lane counts: fq_pow.cu builds it on 8 lanes an element below 3,072
+# elements and on 4 from there
+K5_LANES = [4, 8]
+
 _HOST_SRC = r"""
 #include "fq.cuh"
 extern "C" void host_fq(const int32_t* a, const int32_t* b, int32_t* out, long n, int op) {
@@ -191,29 +195,32 @@ extern "C" long host_fq_lanes(const int32_t* a, const int32_t* b, int32_t* out, 
 }
 
 // the pow chains of fq_pow.cu as it builds them: K5 (degree 1, elements of
-// 32 limbs) on groups of 4 lanes or K6 (degree 2, of 2 x 32) on 2
-// subgroups of 8, the exponent as its 12 words and bit length
+// 32 limbs) on groups of either of its lane counts, 4 or 8, or K6 (degree
+// 2, of 2 x 32) on 2 subgroups of 8, each with its window's table; the
+// exponent as its 12 words and bit length
 template <int G, int S>
 void host_pow(const int32_t* a, int32_t* out, long n, int degree, const fq::lanes::Exponent& e) {
   constexpr int D = fq::lanes::kDigits / G;
   for (long i = 0; i < n; ++i) {
     fq::lanes::Lanes<uint32_t, G> x[2][D], r[2][D];
-    fq::lanes::Fq2Table<G, fq::lanes::kWindowEntries> table;
+    fq::lanes::FqTable<G, fq::lanes::kWindowEntries> table1;
+    fq::lanes::Fq2Table<G, fq::lanes::kWindowEntries> table2;
     for (int c = 0; c < degree; ++c) host_load<G>(x[c], a + 32 * (degree * i + c));
-    if (degree == 1) fq::lanes::pow<G>(r[0], x[0], e);
-    else fq::lanes::fq2_pow<G, S>(r, x, e, table);
+    if (degree == 1) fq::lanes::pow<G>(r[0], x[0], e, table1);
+    else fq::lanes::fq2_pow<G, S>(r, x, e, table2);
     for (int c = 0; c < degree; ++c) host_store<G>(out + 32 * (degree * i + c), r[c]);
   }
 }
 
 // returns the reads of another lane's entry
 extern "C" long host_fq_pow_lanes(const int32_t* a, int32_t* out, long n, int degree, const uint32_t* words,
-                                  int bits) {
+                                  int bits, int lanes) {
   fq::lanes::Exponent e;
   for (int j = 0; j < fq::kWords; ++j) e.words[j] = words[j];
   e.bits = bits;
   fq::lanes::lane_faults = 0;
-  if (degree == 1) host_pow<4, 1>(a, out, n, degree, e);
+  if (degree == 1 && lanes == 8) host_pow<8, 1>(a, out, n, degree, e);
+  else if (degree == 1) host_pow<4, 1>(a, out, n, degree, e);
   else host_pow<8, 2>(a, out, n, degree, e);
   return fq::lanes::lane_faults;
 }
@@ -277,6 +284,18 @@ void host_sums(const int32_t* a, const int32_t* b, const int32_t* c, int32_t* ou
   }
 }
 
+// K9's body: out = s / x mod p, one thread an element
+extern "C" void host_fq_inv(const int32_t* a, int32_t* out, long n, const int32_t* s) {
+  fq::InvStart start;
+  for (int j = 0; j < fq::kInvLimbs; ++j) start.v[j] = s[j];
+  for (long i = 0; i < n; ++i) {
+    uint32_t x[32], r[32];
+    for (int k = 0; k < 32; ++k) x[k] = (uint32_t)a[32 * i + k];
+    fq::inv(r, x, start);
+    for (int k = 0; k < 32; ++k) out[32 * i + k] = (int32_t)r[k];
+  }
+}
+
 extern "C" long host_sums_lanes(const int32_t* a, const int32_t* b, const int32_t* c, int32_t* out, long n,
                                 int lanes) {
   fq::lanes::lane_faults = 0;
@@ -308,12 +327,13 @@ def host_kernel_lib(tmp_path_factory):
     handle.host_fq_lanes.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_long, ctypes.c_int, ctypes.c_int]
     handle.host_fq_lanes.restype = ctypes.c_long
     handle.host_fq_pow_lanes.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_long, ctypes.c_int, ctypes.c_void_p,
-                                                                 ctypes.c_int]
+                                                                 ctypes.c_int, ctypes.c_int]
     handle.host_fq_pow_lanes.restype = ctypes.c_long
     handle.host_mont_mul_n.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_long] + [ctypes.c_int] * 3
     handle.host_mont_mul_n.restype = ctypes.c_long
     handle.host_sums_lanes.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_long, ctypes.c_int]
     handle.host_sums_lanes.restype = ctypes.c_long
+    handle.host_fq_inv.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_long, ctypes.c_void_p]
     return handle
 
 
@@ -351,23 +371,54 @@ POW_FQ2 = [tuple(_rand(2)) for _ in range(3)] + fq_plain.POW_EDGES[2]
 @pytest.mark.parametrize("exponent", list(fq_plain.EXPONENTS))
 @pytest.mark.parametrize("degree", [1, 2])
 def test_pow_chain_arithmetic_matches_integers_and_plain_versions(host_kernel_lib, degree, exponent):
-    """K5 (degree 1, groups of 4 lanes) and K6 (degree 2, groups of 8):
-    fq.cuh's pow / fq2_pow (its 4-bit window, the table in the host's
-    stand-in for shared memory), bit-exact against Python integers and the
-    plain versions, with no read of another lane's entry."""
+    """K5 (degree 1, on each of fq_pow.cu's lane counts)
+    and K6 (degree 2, groups of 8): fq.cuh's pow / fq2_pow (their 4-bit
+    window, the table in the host's stand-in for shared memory), bit-exact
+    against Python integers and the plain versions, with no read of another
+    lane's entry."""
     e = fq_plain.EXPONENTS[exponent]
     words = np.array([(e >> (32 * j)) & 0xFFFFFFFF for j in range(12)], dtype=np.uint32)
     ints = POW_FQ if degree == 1 else POW_FQ2
     a = np.ascontiguousarray(fq.to_limbs(ints))
-    out = np.zeros_like(a)
-    faults = host_kernel_lib.host_fq_pow_lanes(a.ctypes.data, out.ctypes.data, len(ints), degree, words.ctypes.data,
-                                               e.bit_length())
-    assert faults == 0, f"{faults} reads of another lane's entry: the card would read its own"
     plain = fq_plain.pow_bits if degree == 1 else fq_plain.fq2_pow_bits
-    np.testing.assert_array_equal(out, plain(torch.from_numpy(a), fq_plain.bits_msb(e)).numpy())
-    values = fq.from_limbs(out)
+    want_limbs = plain(torch.from_numpy(a), fq_plain.bits_msb(e)).numpy()
     want = [fq_plain.pow_int(x, e, degree) for x in ints]
-    assert (list(values) if degree == 1 else [tuple(v) for v in values]) == want
+    for lanes in K5_LANES if degree == 1 else [8]:
+        out = np.zeros_like(a)
+        faults = host_kernel_lib.host_fq_pow_lanes(a.ctypes.data, out.ctypes.data, len(ints), degree,
+                                                   words.ctypes.data, e.bit_length(), lanes)
+        assert faults == 0, f"{faults} reads of another lane's entry: the card would read its own ({lanes} lanes)"
+        np.testing.assert_array_equal(out, want_limbs)
+        values = fq.from_limbs(out)
+        assert (list(values) if degree == 1 else [tuple(v) for v in values]) == want, lanes
+
+
+# K9's inputs: POW_FQ (random values, 0, 1, p - 1, R mod p), powers of 2
+# (across the 30-bit limbs' and the 12-bit limbs' edges) and values near
+# 2^380 and p
+INV_FQ = POW_FQ + [1 << k for k in (1, 11, 12, 29, 30, 31, 32, 59, 60, 61, 62, 191, 359, 360, 361, 379, 380)] + [
+    (1 << 380) - 1, (1 << 380) + 1, (1 << 380) % P, P - 2, P // 2, int("FFF" * 31, 16) % P]
+
+
+def test_inverse_kernel_arithmetic_matches_fermat(host_kernel_lib):
+    """K9 (fq.cuh's fq::inv: the binary GCD, one thread an element, the
+    wrapper's start value), bit-exact against Fermat's a^(p-2) in Montgomery
+    form on Python integers and against its plain version,
+    fq_plain.pow_bits(a, p - 2); 0 maps to 0."""
+    a = np.ascontiguousarray(fq.to_limbs(INV_FQ))
+    out = np.zeros_like(a)
+    host_kernel_lib.host_fq_inv(a.ctypes.data, out.ctypes.data, len(INV_FQ), ctypes.addressof(fq_cuda.INV_START))
+    assert list(fq.from_limbs(out)) == [fq_plain.pow_int(x, P - 2, 1) for x in INV_FQ]
+    np.testing.assert_array_equal(out, fq_plain.pow_bits(torch.from_numpy(a), fq_plain.bits_msb(P - 2)).numpy())
+
+
+def test_inv_takes_fermat_on_the_cpu_and_no_other_device():
+    """fq.inv: the plain version (a^(p-2), fq_plain.pow_bits) for a CPU
+    tensor; no kernel for any device but the card."""
+    a = torch.from_numpy(A[:4])
+    assert torch.equal(fq.inv(a), fq_plain.pow_bits(a, fq_plain.bits_msb(P - 2)))
+    with pytest.raises(ValueError, match="no kernel"):
+        fq.inv(a.to("meta"))
 
 
 # a lazy sum's range: canonical values, p, and up to 2p - 1

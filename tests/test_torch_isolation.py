@@ -100,6 +100,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         fq_cuda.fq_pow(x, [1, 0, 1])
     with pytest.raises(ValueError, match="CUDA tensor"):
         fq_cuda.fq2_pow(x.view(1, 2, 32), [1, 0, 1])
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fq_cuda.fq_inv(x)
     with pytest.raises(ValueError, match="CUDA tensors"):
         fq_cuda.g1_mul_static((x, x, x), 5)
     with pytest.raises(ValueError, match="CUDA tensors"):
