@@ -1,12 +1,12 @@
 """Drive the PyTorch/CUDA port on one CUDA card and check it end to end.
 
-    python3 chip_smoke.py [--seed 0] [--validators 524288] [--slots 4]
+    python3 chip_smoke.py [--seed 0] [--validators 524288] [--slots 2] [--altair-blocks 4]
 
 Phases, each raising on any mismatch:
 
 0. build: nvcc for sm_90a on every source of ops/csrc (sha256.cu, fq.cu,
-   fq_pow.cu, curve.cu, fq_inv.cu, probe.cu), one process each, all started
-   together.
+   fq_pow.cu, curve.cu, fq_inv.cu, flag_deltas.cu, probe.cu), one process
+   each, all started together.
 1. env: torch/CUDA versions, the card's name and power limit; the liveness
    probe (probe.cu, ``x + 1`` on (8, 128) int32) against its plain version.
 2. kernels: K1 (sha256_blocks) and K2 (sha256_raw_blocks) on 2^20 random
@@ -58,7 +58,28 @@ Phases, each raising on any mismatch:
    attestation signed over another message): the card must reject exactly
    that row, the host oracle must agree, and the transition must raise on
    replay.
-6. fq timing: the K3/K4 kernels (lane-group and one-thread) timed in
+6. altair: a mainnet-preset altair chain of ``--validators`` validators with
+   the same keys: genesis with both sync committees, then 94 empty slots
+   through the epoch engine (use_vectorized_epoch, use_batched_attestations,
+   its torch backend: K10 flag_deltas on the card) and the device hasher,
+   across epochs 0 -> 1 and 1 -> 2; participation drawn from the seed (~95%
+   of validators with each flag); then ``--altair-blocks`` signed blocks
+   from slot 95, each with 128 attestations in halves and a sync aggregate
+   with ~1/16 of its 512 seats off. The host run builds them with the
+   numpy engine, the host hasher and the reference BLS; the device run
+   applies them with K10, the device hasher and one deferred flush a block
+   on the card (two calls: the 128-key bucket and the sync aggregate's
+   512-key bucket). Every root must equal the host's, every row hold, a
+   sample agree with the host oracle (the sync row of the first block
+   included), each call make the launches of ``FLUSH_LAUNCHES`` and
+   ``SYNC_CALL_LAUNCHES``; the block at 96 runs epoch 2 -> 3 (K10 three
+   times at ``--validators`` rows), timed against the numpy engine's. Then
+   the last block again on its pre-state, its sync aggregate signing
+   another root: exactly that row fails, and the host oracle agrees. K10 is then held bit-exact against
+   its plain version on the epoch's own columns and seeded edge rows, and
+   against Python integers past 2^63, and timed. After it the K3-K9 checks
+   run again at every size the phase0 and altair flushes launched.
+7. fq timing: the K3/K4 kernels (lane-group and one-thread) timed in
    turns in one profiler window per size, at 4,608 and 16,384 elements and
    at each kernel's two most frequent sizes of that histogram, beside the
    bound and the launch floor (the probe's device time). K5/K6 at every
@@ -97,9 +118,11 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
-from consensus_specs_tpu_torch import harness, probe  # noqa: E402
+from consensus_specs_tpu_torch import engine, harness, probe  # noqa: E402
 from consensus_specs_tpu_torch.crypto import bls  # noqa: E402
 from consensus_specs_tpu_torch.crypto.bls import ciphersuite  # noqa: E402
+from consensus_specs_tpu_torch.engine import delta_checks as dc  # noqa: E402
+from consensus_specs_tpu_torch.engine import ops_torch  # noqa: E402
 from consensus_specs_tpu_torch.ops import bls_torch, cuda_build, fq, fq_cuda, fq_plain, tower  # noqa: E402
 from consensus_specs_tpu_torch.ops import curve_torch as cj  # noqa: E402
 from consensus_specs_tpu_torch.ops import ladder_checks as lc  # noqa: E402
@@ -174,6 +197,7 @@ INT32_LANES_PER_SM = 64  # Hopper SM: 64 INT32 results per clock
 FLUSH_LAUNCHES = {"fq_mul": 1178, "fq_addsub": 9062, "fq_pow": 2, "fq2_pow": 4, "g1_mul_static": 2,
                   "g2_mul_static": 3, "fq_inv": 4}
 DEFAULT_VALIDATORS = 1 << 19
+FQ_SIZES = [128 * 2 * 18, 16384]  # K3/K4 checked first: an Fq12 product of 128 Miller loops, a decode
 
 P = fq.P_INT
 RINV = pow(1 << 384, -1, P)
@@ -329,11 +353,12 @@ def phase_build(report: dict) -> None:
     """One nvcc per source, all started together."""
     t0 = time.perf_counter()
     builds = (sha256_cuda.build, fq_cuda.build, fq_cuda.build_pow, fq_cuda.build_curve, fq_cuda.build_inv,
-              probe.build)
+              ops_torch.build, probe.build)
     with ThreadPoolExecutor(max_workers=len(builds)) as pool:
         libs = list(pool.map(lambda build: build(verbose=True), builds))
     report["build_s"] = time.perf_counter() - t0
-    print(f"[build] {SOURCE}, {FQ_SOURCE}, {FQ_POW_SOURCE}, {CURVE_SOURCE}, {FQ_INV_SOURCE}, {PROBE_SOURCE} in "
+    print(f"[build] {SOURCE}, {FQ_SOURCE}, {FQ_POW_SOURCE}, {CURVE_SOURCE}, {FQ_INV_SOURCE}, {FLAG_DELTAS_SOURCE}, "
+          f"{PROBE_SOURCE} in "
           f"{report['build_s']:.1f}s: "
           f"{[lib.name for lib in libs]}", flush=True)
 
@@ -442,7 +467,7 @@ def phase_fq_timing(report: dict, card: "Card", seed: int, hist: dict) -> None:
         top = sorted(hist[name], key=lambda n: (-hist[name][n], n))[:2]
         variants = fq_variants(op)
         by_size = {}
-        for n in dict.fromkeys(top + [128 * 2 * 18, 16384]):
+        for n in dict.fromkeys(top + FQ_SIZES):
             a, b, _, _ = field_pairs(n, rng, edges=False)
             ms = device_ms_turns({f"{name}_{FQ_SYMBOLS[k]}_kernel": (lambda f=f: f(a, b)) for k, f in variants.items()})
             ms = {k: ms[f"{name}_{FQ_SYMBOLS[k]}_kernel"] for k in variants}
@@ -1186,6 +1211,319 @@ def tampered_phase(report: dict, spec, states: tuple, seed: int) -> None:
           f"host oracle agrees, replay raised {raised} ({seconds:.3f}s)", flush=True)
 
 
+# The altair chain: 94 empty slots from genesis cross the epoch boundaries
+# 0 -> 1 and 1 -> 2 through the engine; the blocks at 95, 96, ... then
+# carry attestations and a sync aggregate, and the one at 96 runs epoch
+# 2 -> 3, where justification and rewards both run (K10 three times, one
+# launch a flag).
+ALTAIR_ADVANCE_SLOT = 3 * 32 - 2
+FLAG_DELTAS_SOURCE = "consensus_specs_tpu_torch/ops/csrc/flag_deltas.cu"
+FLAG_DELTAS_REPLACES = "consensus_specs_tpu/engine/ops_jax.py:29"
+K10_ROW_BYTES = 8 + 1 + 1 + 8 + 8  # increments, two masks in; rewards, penalties out
+# An altair block's flush makes two backend calls: its 128 attestations
+# and 2 Verify rows in the 128-key bucket (the launches of FLUSH_LAUNCHES)
+# and its sync aggregate alone in the 512-key bucket, whose launches
+# depend only on the tree sum's depth (9 levels from 257 to 512 keys) and
+# on whether the call decodes a key the pubkey cache has not seen: the
+# sync committee's keys are decoded by the first flush that meets them.
+# Counted on the CPU by wrapping the plain dispatch points (fq_plain's mul,
+# addsub, pow_bits, fq2_pow_bits and curve_torch.scalar_mul_static_plain),
+# which the counts do not depend on, on one row of 300 and of 480 keys.
+SYNC_CALL_LAUNCHES = {
+    "decode": {"fq_mul": 1224, "fq_addsub": 9118, "fq_pow": 2, "fq2_pow": 4, "g1_mul_static": 2,
+               "g2_mul_static": 3, "fq_inv": 4},
+    "cached": {"fq_mul": 1196, "fq_addsub": 9087, "fq_pow": 1, "fq2_pow": 4, "g1_mul_static": 0,
+               "g2_mul_static": 3, "fq_inv": 4},
+}
+
+
+class CallRecorder:
+    """Wraps the torch backend's batch pipeline for the duration: each
+    call's rows, largest key count, keys decoded and K3-K9 launches."""
+
+    def __init__(self):
+        self.calls: list = []
+
+    def __enter__(self):
+        self.real = bls_torch.fast_aggregate_verify_batch_cold
+
+        def call(pubkey_lists, messages, signatures):
+            before, decoded = dict(fq_cuda.launches), bls_torch._pubkeys().decoded
+            out = self.real(pubkey_lists, messages, signatures)
+            self.calls.append({"rows": len(signatures), "keys": max(len(p) for p in pubkey_lists),
+                               "decoded": bls_torch._pubkeys().decoded - decoded,
+                               "launches": {k: fq_cuda.launches[k] - before[k] for k in fq_cuda.KERNELS}})
+            return out
+
+        bls_torch.fast_aggregate_verify_batch_cold = call
+        return self
+
+    def __exit__(self, *exc):
+        bls_torch.fast_aggregate_verify_batch_cold = self.real
+
+
+class Timed:
+    """Wraps ``spec.<name>`` for the duration, summing its seconds."""
+
+    def __init__(self, spec, *names):
+        self.spec, self.names, self.seconds = spec, names, dict.fromkeys(names, 0.0)
+
+    def __enter__(self):
+        self.real = {n: getattr(self.spec, n) for n in self.names}
+        for n, fn in self.real.items():
+            def timed(state, n=n, fn=fn):
+                t0 = time.perf_counter()
+                fn(state)
+                torch.cuda.synchronize()
+                self.seconds[n] += time.perf_counter() - t0
+            setattr(self.spec, n, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.real.items():
+            setattr(self.spec, n, fn)
+
+
+def altair_phase(report: dict, seed: int, validators: int, n_blocks: int) -> tuple:
+    """The altair chain at ``validators`` validators with real keys: genesis
+    (both sync committees), 94 empty slots through the engine on the torch
+    backend (K10) and the device hasher, participation drawn from the
+    seed, then ``n_blocks`` signed blocks at slots 95, 96, ... (128
+    attestations in halves and a sync aggregate of ~1/16 seats off), and
+    the last of them again with its sync aggregate over another root. The host run builds them with the numpy engine, the host
+    hasher and the reference BLS (checks off while building); the device
+    run applies them with K10, the device hasher and one deferred flush a
+    block on the card, and must reach the host's post-state root at every
+    block. Returns the main path's counts (K3-K10), the flushes' size
+    histogram and K10's calls (their columns)."""
+    spec = build_spec("altair", "mainnet")
+    engine.use_vectorized_epoch()
+    engine.use_batched_attestations()
+    engine.use_backend("torch")
+    bls.bls_active = False
+    dev.use_device_hasher(calibrate=False)
+    t0 = time.perf_counter()
+    state = harness.genesis(spec, validators)
+    genesis_s = time.perf_counter() - t0
+    require(len(set(state.current_sync_committee.pubkeys)) > 500, "a degenerate sync committee")
+    ops_torch.reset_counters()
+    with Timed(spec, "process_epoch") as epochs:
+        t0 = time.perf_counter()
+        spec.process_slots(state, ALTAIR_ADVANCE_SLOT)
+        torch.cuda.synchronize()
+        advance_s = time.perf_counter() - t0
+    advance_k10 = dict(ops_torch.sizes["flag_deltas"])
+    require(sum(advance_k10.values()) == 3, f"the advance launched K10 {advance_k10}, not 3 times at epoch 1 -> 2")
+    harness.draw_participation(spec, state, seed)
+    host_state = state.copy()
+    print(f"[altair] genesis of {validators} validators {genesis_s:.1f}s; {ALTAIR_ADVANCE_SLOT} empty slots "
+          f"{advance_s:.1f}s (epoch processing {epochs.seconds['process_epoch']:.1f}s, K10 {advance_k10})",
+          flush=True)
+
+    # the host run: numpy engine, host hasher, reference BLS; builds the blocks
+    engine.use_backend("numpy")
+    dev.use_host_hasher()
+    bls.use_reference()
+    blocks, host_roots, host_times = [], [], []
+    stage_names = ["process_epoch"] + [n for n in engine.STAGE_NAMES if hasattr(spec, n)]
+    with Timed(spec, *stage_names) as host_epoch:
+        for _ in range(n_blocks):
+            t0 = time.perf_counter()
+            blocks.append(harness.next_block(spec, host_state, split=True, sign=True, seed=seed))
+            host_times.append(time.perf_counter() - t0)
+            host_roots.append(spec.hash_tree_root(host_state))
+    tampered = harness.tampered_sync_copy(spec, host_state, blocks[-1], seed)
+    require(host_epoch.seconds["process_epoch"] > 0, "the blocks cross no epoch boundary")
+    n_att = [len(b.message.body.attestations) for b in blocks]
+    full = min(spec.MAX_ATTESTATIONS, 2 * int(spec.get_committee_count_per_slot(host_state, 0)))
+    require(all(n == full for n in n_att), f"blocks carry {n_att} attestations, not {full} each")
+
+    # the device run: K10, the device hasher, one deferred flush a block on the card
+    engine.use_backend("torch")
+    dev.use_device_hasher(calibrate=False)
+    bls.use_backend("torch")
+    bls.bls_active = True
+    spec._shuffle_cache.clear()
+    spec._active_indices_cache.clear()
+    fq_cuda.reset_counters()
+    ops_torch.reset_counters()
+    k10_calls = []
+    real_k10 = ops_torch.flag_deltas
+
+    def recorded(*args, **kwargs):
+        k10_calls.append(args)
+        return real_k10(*args, **kwargs)
+
+    ops_torch.flag_deltas = recorded
+    expect = validators == DEFAULT_VALIDATORS
+    per_block, hist = [], {k: {} for k in fq_cuda.KERNELS}
+    try:
+        with Timed(spec, *stage_names) as dev_epoch:
+            for i, (sb, want) in enumerate(zip(blocks, host_roots)):
+                if i == len(blocks) - 1:
+                    last_pre = state.copy()  # the tampered copy of this block goes there
+                before_sizes = {k: dict(fq_cuda.sizes[k]) for k in fq_cuda.KERNELS}
+                t0 = time.perf_counter()
+                with CallRecorder() as rec:
+                    verifier = harness.apply_block_deferred(spec, state, sb, verifier=TimedVerifier())
+                torch.cuda.synchronize()
+                block_s = time.perf_counter() - t0
+                got = spec.hash_tree_root(state)
+                require(got == want, f"altair slot {int(state.slot)}: device root {got.hex()} host {want.hex()}")
+                bits = list(sb.message.body.sync_aggregate.sync_committee_bits)
+                sync_rows = [j for j, k in enumerate(verifier.entries) if k[0] == "fav" and len(k[1]) == sum(bits)]
+                require(len(sync_rows) == 1 and 256 < sum(bits) <= 512, f"sync rows {sync_rows}, {sum(bits)} bits")
+                fav = [j for j, k in enumerate(verifier.entries) if k[0] == "fav" and j not in sync_rows]
+                v = [j for j, k in enumerate(verifier.entries) if k[0] == "v"]
+                sampled = v[:2] + fav[:1] + fav[-1:] + (sync_rows if i == 0 else [])
+                t1 = time.perf_counter()
+                for j in sampled:
+                    require(_oracle(verifier.entries[j]) == verifier.results[j],
+                            f"altair slot {int(state.slot)}: host oracle disagrees on row {j}")
+                oracle_s = time.perf_counter() - t1
+                launches = {k: sum(c["launches"][k] for c in rec.calls) for k in fq_cuda.KERNELS}
+                variant = "decode" if rec.calls[-1]["decoded"] else "cached"  # the sync row is the last bucket
+                if expect:
+                    require([c["keys"] for c in rec.calls] == [128, sum(bits)],
+                            f"the flush's calls took {[c['keys'] for c in rec.calls]} keys, not [128, {sum(bits)}]")
+                    require(rec.calls[0]["launches"] == FLUSH_LAUNCHES and
+                            rec.calls[1]["launches"] == SYNC_CALL_LAUNCHES[variant],
+                            f"altair slot {int(state.slot)}: the flush's calls made "
+                            f"{[c['launches'] for c in rec.calls]} launches, not {FLUSH_LAUNCHES} and "
+                            f"{SYNC_CALL_LAUNCHES[variant]} ({variant})")
+                for k in fq_cuda.KERNELS:
+                    for n, c in fq_cuda.sizes[k].items():
+                        if c != before_sizes[k].get(n, 0):
+                            hist[k][n] = hist[k].get(n, 0) + c - before_sizes[k].get(n, 0)
+                rec_ = {"slot": int(state.slot), "checks": len(set(verifier.entries)), "rows_true": sum(verifier.results),
+                        "sync_keys": sum(bits), "block_s": block_s, "flush_s": verifier.flush_s, "calls": rec.calls,
+                        "sync_call": variant, "launches": launches, "oracle_rows": len(sampled), "oracle_s": oracle_s}
+                per_block.append(rec_)
+                print(f"[altair] slot {rec_['slot']}: {rec_['checks']} checks all true ({sum(bits)}-key sync "
+                      f"aggregate), block {block_s:.3f}s, flush {verifier.flush_s:.3f}s in "
+                      f"{len(rec.calls)} calls of {[c['rows'] for c in rec.calls]} rows and "
+                      f"{[c['keys'] for c in rec.calls]} keys, sync call {variant}, K3-K9 launches {launches}, "
+                      f"root = host's, oracle agrees on {len(sampled)} rows ({oracle_s:.1f}s)", flush=True)
+    finally:
+        ops_torch.flag_deltas = real_k10
+    k10 = dict(ops_torch.sizes["flag_deltas"])
+    require(k10 == {validators: 3}, f"the blocks launched K10 {k10}, not 3 times at {validators} rows")
+    require(len(k10_calls) == 3, f"{len(k10_calls)} flag_deltas calls, not 3")
+
+    # the last block once more, its sync aggregate signing another root
+    verifier = bls.DeferredVerifier()
+    try:
+        harness.apply_block_deferred(spec, last_pre.copy(), tampered, pre_state=last_pre, verifier=verifier)
+    except AssertionError as e:
+        require("replayed transition accepted" not in str(e), str(e))
+    else:
+        raise AssertionError("the tampered altair block was accepted")
+    false_rows = [j for j, r in enumerate(verifier.results) if not r]
+    require(len(false_rows) == 1, f"{len(false_rows)} rows rejected, not exactly the tampered sync aggregate")
+    key = verifier.entries[false_rows[0]]
+    require(key[0] == "fav" and key[3] == bytes(tampered.message.body.sync_aggregate.sync_committee_signature),
+            "the rejected row is not the tampered sync aggregate")
+    require(_oracle(key) is False, "the host oracle accepts the tampered sync aggregate")
+    bls.use_reference()
+    dev.use_host_hasher()
+    engine.use_backend("numpy")
+    engine.use_interpreted_epoch()
+    engine.use_direct_attestations()
+
+    timed = per_block[1:] or per_block
+    report["altair"] = {
+        "validators": validators, "genesis_s": genesis_s, "advance_s": advance_s,
+        "advance_epoch_s": epochs.seconds["process_epoch"], "advance_k10": advance_k10,
+        "host_block_s": host_times, "attestations": n_att, "blocks": per_block,
+        "boundary": {"device_epoch_s": dev_epoch.seconds["process_epoch"],
+                     "device_rewards_s": dev_epoch.seconds["process_rewards_and_penalties"],
+                     "host_epoch_s": host_epoch.seconds["process_epoch"],
+                     "host_rewards_s": host_epoch.seconds["process_rewards_and_penalties"],
+                     "device_stage_s": dev_epoch.seconds, "host_stage_s": host_epoch.seconds},
+        "flush_sizes": hist, "k10_launches": k10,
+        "checks_per_s": sum(r["checks"] for r in timed) / sum(r["flush_s"] for r in timed),
+        "tampered_rejected": false_rows,
+    }
+    b = report["altair"]["boundary"]
+    print(f"[altair] epoch 2 -> 3 by stage, seconds on the card (K10, device hasher) / numpy engine (host hasher): "
+          f"{ {n.replace('process_', ''): (round(dev_epoch.seconds[n], 3), round(host_epoch.seconds[n], 3)) for n in stage_names} }",
+          flush=True)
+    print(f"[altair] {n_blocks} signed blocks from slot {ALTAIR_ADVANCE_SLOT + 1}, every root the host's; epoch 2 -> 3 "
+          f"on the card {b['device_epoch_s']:.2f}s (rewards {b['device_rewards_s']:.2f}s, K10 {k10}) against the numpy "
+          f"engine's {b['host_epoch_s']:.2f}s (rewards {b['host_rewards_s']:.2f}s); "
+          f"{report['altair']['checks_per_s']:.2f} checks/s; the tampered sync aggregate alone rejected, the host "
+          f"oracle agrees", flush=True)
+    launches = {k: sum(r["launches"][k] for r in per_block) for k in fq_cuda.KERNELS}
+    return {"launches": {**launches, "flag_deltas": sum(k10.values())}}, hist, k10_calls
+
+
+def phase_flag_deltas(report: dict, card: "Card", seed: int, epoch_calls: list) -> None:
+    """K10 bit-exact against its plain version on the card on the epoch's
+    own columns (the three calls of the boundary) and on seeded edge rows
+    (increments 0 and 32 under every mask pair, upi 0, leak and penalize
+    each way); against Python integers on a sample and on rows whose
+    numerator lies between 2^63 and 2^64 - 1, past the plain version's
+    range. Timed on the epoch's largest-weight flag: the profiler's device
+    time a launch (median of three windows), the plain version on the
+    card, and one ``flag_deltas`` call's wall time with its copies to the
+    card and back; beside the bound: bytes (26 a row) against operations
+    (three 64-bit products and a 64-bit division where the row's masks ask
+    for one, each counted as one 32-bit operation: a lower bound)."""
+    def tensors(cols):
+        return (torch.from_numpy(np.ascontiguousarray(cols[0]).view(np.int64)).cuda(),
+                torch.from_numpy(np.ascontiguousarray(cols[1])).cuda(),
+                torch.from_numpy(np.ascontiguousarray(cols[2])).cuda())
+
+    err = 0
+    cases = [(args[:3], args[3:8], args[8], args[9]) for args in epoch_calls]
+    n = len(epoch_calls[0][0])
+    cases += [(dc.columns(n, seed + j), scalars, leak, penalize) for j, scalars in enumerate(dc.SCALARS)
+              for leak in (False, True) for penalize in (False, True)]
+    for cols, scalars, leak, penalize in cases:
+        t = tensors(cols)
+        got = ops_torch.flag_deltas_cuda(*t, *scalars, leak, penalize)
+        want = ops_torch.flag_deltas_plain(*t, *scalars, leak, penalize)
+        torch.cuda.synchronize()
+        e = max(max_abs_err(a, b) for a, b in zip(got, want))
+        require(e == 0, f"flag_deltas disagrees with its plain version (max abs err {e})")
+        sample = slice(0, 256)
+        ints = dc.python_deltas(*(c[sample] for c in cols), *scalars, leak, penalize)
+        require([g[sample].cpu().numpy().view(np.uint64).tolist() for g in got] == list(ints),
+                "flag_deltas disagrees with Python integers")
+        err = max(err, e)
+    for leak in (False, True):
+        for penalize in (False, True):
+            cols = dc.columns(4099, seed + 7)
+            got = ops_torch.flag_deltas_cuda(*tensors(cols), *dc.SCALARS_PAST_INT64, leak, penalize)
+            require([g.cpu().numpy().view(np.uint64).tolist() for g in got] ==
+                    list(dc.python_deltas(*cols, *dc.SCALARS_PAST_INT64, leak, penalize)),
+                    "flag_deltas disagrees with Python integers past 2^63")
+    # timed on the target flag's call (the largest weight), as the epoch gave it
+    args = max(epoch_calls, key=lambda a: a[4])
+    t = tensors(args[:3])
+    scalars, leak, penalize = args[3:8], args[8], args[9]
+    ms = device_ms(lambda: ops_torch.flag_deltas_cuda(*t, *scalars, leak, penalize), "flag_deltas_kernel")
+    plain_ms = cuda_ms(lambda: ops_torch.flag_deltas_plain(*t, *scalars, leak, penalize))
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        ops_torch.flag_deltas(*args)
+        walls.append(time.perf_counter() - t0)
+    call_ms = statistics.median(walls) * 1e3
+    in_mask, eligible = args[1], args[2]
+    divisions = int((in_mask & eligible).sum()) * (not leak) + int((~in_mask & eligible).sum()) * penalize
+    ops = 3 * n + divisions
+    bound, bound_by = card.bound_ms(ops, 1, K10_ROW_BYTES * n)
+    report["flag_deltas"] = {
+        "rows": n, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "call_ms": call_ms,
+        "bound_ms": bound, "bound_by": bound_by, "library_ms": None, "cases": len(cases) + 4,
+    }
+    print(f"[flag_deltas] K10 bit-exact against its plain version on the epoch's 3 calls and {len(cases) - 3} seeded "
+          f"cases at {n} rows, and against Python integers past 2^63; {ms * 1e3:.2f} us a launch on the card at {n} "
+          f"rows, bound {bound * 1e3:.2f} us ({bound_by}, {bound / ms:.1%} of it), plain {plain_ms * 1e3:.1f} us, "
+          f"one flag_deltas call with its copies {call_ms:.3f} ms wall", flush=True)
+
+
 def kernel_records(report: dict, main_counts: tuple) -> list:
     """The kernels line: each kernel of the main path with its launches
     there (summed over ``main_counts``, each a phase's ``{"launches": ...}``),
@@ -1201,10 +1539,14 @@ def kernel_records(report: dict, main_counts: tuple) -> list:
         ("g1_mul_static", LADDER_REPLACES, CURVE_SOURCE),
         ("g2_mul_static", LADDER_REPLACES, CURVE_SOURCE),
         ("fq_inv", INV_REPLACES, FQ_INV_SOURCE),
+        ("flag_deltas", FLAG_DELTAS_REPLACES, FLAG_DELTAS_SOURCE),
         ("add_one", "tools/pallas_probe.py:46", PROBE_SOURCE),
     ):
         if name == "add_one":
             k, launches = report["probe"], report["probe"]["launches"]
+        elif name == "flag_deltas":
+            k = report["flag_deltas"]
+            launches = sum(c["launches"].get(name, 0) for c in main_counts)
         else:
             if name in fq_cuda.KERNELS:
                 timing = report["ladder_timing" if name in LADDER else "pow_timing" if name in POW else
@@ -1219,6 +1561,7 @@ def kernel_records(report: dict, main_counts: tuple) -> list:
             "launches": launches, "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k["library_ms"], **({"elements": k["elements"]} if name in fq_cuda.KERNELS else {}),
+            **({"rows": k["rows"], "call_ms": k["call_ms"]} if name == "flag_deltas" else {}),
         }
         if name in LADDER or name == "fq_inv":  # K7-K9: the latency floor; K5/K6: the chain's latency estimate
             rec["latency_floor_ms"] = k["latency_floor_ms"]
@@ -1242,26 +1585,37 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--validators", type=int, default=DEFAULT_VALIDATORS)
-    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--slots", type=int, default=2)  # 2 + 2 phase0 slots leave the altair phase its time
+    ap.add_argument("--altair-blocks", type=int, default=4)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
 
-    report: dict = {"args": vars(args)}
+    report: dict = {"args": vars(args), "phase_s": {}}
     t_start = time.perf_counter()
+    lap = [t_start]
+
+    def done(phase: str) -> None:
+        """Seconds since the last phase ended, kept in report["phase_s"]."""
+        now = time.perf_counter()
+        report["phase_s"][phase] = now - lap[0]
+        lap[0] = now
+
     phase_build(report)
     card = Card()
     phase_env(report, card)
+    done("build and env")
     spec = build_spec("phase0", "mainnet")
     n_blocks = (args.validators + 255) // 256
     k2_rows = spec.SHUFFLE_ROUND_COUNT * (1 + n_blocks)  # the shuffle's one sha256_many_small call
     phase_kernels(report, card, args.seed, k2_rows)
-    phase_fq_kernels(report, args.seed, [128 * 2 * 18, 16384], "an Fq12 product of 128 Miller loops, a decode")
+    phase_fq_kernels(report, args.seed, FQ_SIZES, "an Fq12 product of 128 Miller loops, a decode")
     phase_pow_kernels(report, args.seed, {name: POW_SIZES for name in POW}, "1, a flush's 260, a decode's 16,385")
     phase_inv_kernels(report, args.seed, POW_SIZES, "1, a flush's 260, a decode's 16,385")
     phase_ladder_kernels(report, args.seed, {name: LADDER_SIZES for name in LADDER},
                          "1, a flush's 130 and 260, a decode's 16,385")
+    done("kernel checks")
 
     print("[calibrate]", json.dumps(dev.use_device_hasher(calibrate=True)), flush=True)
     dev.use_host_hasher()
@@ -1278,27 +1632,41 @@ def main() -> int:
     require(genesis.validators[len(keys) - 1].pubkey == keys[-1], "genesis does not carry the derived keys")
     print(f"[setup] {args.validators} keys in {report['keys_s']:.1f}s; genesis and a copy in "
           f"{report['setup_s']:.1f}s", flush=True)
+    done("calibrate and setup")
 
     root_counts = state_root_phase(report, spec, states)
+    done("state_root")
     transition_counts = transition_phase(report, spec, states, args.slots)
+    done("transition")
     expect = FLUSH_LAUNCHES if args.validators == DEFAULT_VALIDATORS else None
     bls_counts, hist = bls_phase(report, spec, states, args.slots, expect)
     tampered_phase(report, spec, states, args.seed)
+    done("bls and tampered")
     bls.use_reference()
     dev.use_host_hasher()
-    phase_fq_kernels(report, args.seed, sorted(set(hist["fq_mul"]) | set(hist["fq_addsub"])),
-                     "every size a flush launched")
-    phase_pow_kernels(report, args.seed, {name: sorted(hist[name]) for name in POW}, "every size a flush launched")
-    phase_inv_kernels(report, args.seed, sorted(hist["fq_inv"]), "every size a flush launched")
-    phase_ladder_kernels(report, args.seed, {name: sorted(hist[name]) for name in LADDER},
-                         "every size a flush launched")
+    del states, genesis
+    altair_counts, altair_hist, k10_calls = altair_phase(report, args.seed, args.validators, args.altair_blocks)
+    done("altair")
+    phase_flag_deltas(report, card, args.seed, k10_calls)
+    done("flag_deltas")
+    # the checks at every size a flush launched (the phase0 and the altair
+    # flushes) that the kernel checks above did not cover
+    sizes = {k: set(altair_hist[k]) | set(hist[k]) for k in fq_cuda.KERNELS}
+    label = "every other size a flush launched"
+    phase_fq_kernels(report, args.seed, sorted((sizes["fq_mul"] | sizes["fq_addsub"]) - set(FQ_SIZES)), label)
+    phase_pow_kernels(report, args.seed, {name: sorted(sizes[name] - set(POW_SIZES)) for name in POW}, label)
+    phase_inv_kernels(report, args.seed, sorted(sizes["fq_inv"] - set(POW_SIZES)), label)
+    phase_ladder_kernels(report, args.seed, {name: sorted(sizes[name] - set(LADDER_SIZES)) for name in LADDER}, label)
+    done("kernel checks at the flush sizes")
     phase_fq_timing(report, card, args.seed, hist)
     phase_pow_timing(report, card, args.seed, hist)
     phase_inv_timing(report, card, args.seed, hist)
     phase_ladder_timing(report, card, args.seed, hist)
+    done("timing")
     report["total_s"] = time.perf_counter() - t_start
+    print(f"[phases] seconds: { {k: round(v, 1) for k, v in report['phase_s'].items()} }", flush=True)
 
-    records = kernel_records(report, (root_counts, transition_counts, bls_counts))
+    records = kernel_records(report, (root_counts, transition_counts, bls_counts, altair_counts))
     print("[report]", json.dumps(report, default=str))
     print(json.dumps({
         "kernels": records,
@@ -1309,6 +1677,9 @@ def main() -> int:
         "device_idle_share": report["transition"]["device_idle_share"],
         "bls_checks_per_s": report["bls"]["checks_per_s"],
         "bls_flush_device_idle_share": report["bls"]["flush_device_idle_share"],
+        "altair_checks_per_s": report["altair"]["checks_per_s"],
+        "altair_epoch_s": report["altair"]["boundary"]["device_epoch_s"],
+        "altair_epoch_numpy_s": report["altair"]["boundary"]["host_epoch_s"],
         "total_s": report["total_s"],
     }))
     print(report["env"]["card"])

@@ -1,11 +1,14 @@
-"""States and blocks to drive the phase0 state transition with.
+"""States and blocks to drive the phase0 and altair state transitions with.
 
 The port's own copy of what it needs from the JAX package's test framework
-(``test_framework/{genesis,block,attestations,state}.py``): a genesis
-state, the block of the next slot with every committee of the previous slot
-attesting, and that block with its ``state_root`` filled in; and a runner
-that applies a block with its signature checks deferred into one batched
-flush (the vector generator's ``--bls-defer`` pattern).
+(``test_framework/{genesis,block,attestations,state,multi_operations}.py``):
+a genesis state (altair: with its participation columns, inactivity scores
+and both sync committees), the block of the next slot with every committee
+of the previous slot attesting (altair: and the sync committee's aggregate),
+and that block with its ``state_root`` filled in; participation columns
+drawn from a seed; and a runner that applies a block with its signature
+checks deferred into one batched flush (the vector generator's
+``--bls-defer`` pattern).
 
 Keys follow the test framework's convention, privkey(i) = i + 1, so
 pubkey(i) = (i + 1) G1. ``pubkeys(n)`` derives them at registry scale by
@@ -18,13 +21,16 @@ Signed blocks (``sign=True``) carry real signatures: the proposer's and
 the randao reveal, and each attestation signed once by the sum of its
 members' secret keys mod r, which gives the same bytes as ``Aggregate`` of
 the members' signatures (a signature is linear in the key) at the cost of
-one ``Sign``.
+one ``Sign``; the sync aggregate likewise, by the sum over its participating
+seats (a validator sampled into two seats counts twice, as it does in
+``FastAggregateVerify``).
 """
 from __future__ import annotations
 
 import os
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from .crypto import bls
@@ -112,13 +118,25 @@ def _pubkeys(n: int, synthetic: bool, seed: int) -> list:
     return [raw[48 * i : 48 * i + 48] for i in range(n)]
 
 
+def _fork_versions(spec) -> tuple:
+    """(previous_version, current_version) of a test genesis state of the
+    spec's fork (ref: test/helpers/genesis.py:20-40)."""
+    cfg = spec.config
+    return {"phase0": (cfg.GENESIS_FORK_VERSION, cfg.GENESIS_FORK_VERSION),
+            "altair": (cfg.GENESIS_FORK_VERSION, cfg.ALTAIR_FORK_VERSION)}[spec.fork]
+
+
 def genesis(spec, n_validators: int, synthetic_pubkeys: bool = False, seed: int = 0):
     """A genesis state of ``n_validators`` active validators at the maximum
     effective balance, laid out as the test framework's
     ``create_genesis_state`` lays it out (ref: test/helpers/genesis.py).
 
-    No list root is left cached in the state: the first ``hash_tree_root``
-    of it hashes the whole registry."""
+    phase0: no list root is left cached in the state, so the first
+    ``hash_tree_root`` of it hashes the whole registry. altair: empty
+    participation columns and inactivity scores, and both sync committees
+    from the spec's ``get_next_sync_committee`` (its keys aggregated by
+    ``eth_aggregate_pubkeys``, which needs real keys); it roots the
+    registry, as the committee's active set does."""
     deposit_root = b"\x42" * 32
     eth1_block_hash = b"\xda" * 32
     balance = spec.MAX_EFFECTIVE_BALANCE
@@ -141,8 +159,8 @@ def genesis(spec, n_validators: int, synthetic_pubkeys: bool = False, seed: int 
             deposit_root=deposit_root, deposit_count=n_validators, block_hash=eth1_block_hash
         ),
         fork=spec.Fork(
-            previous_version=spec.config.GENESIS_FORK_VERSION,
-            current_version=spec.config.GENESIS_FORK_VERSION,
+            previous_version=_fork_versions(spec)[0],
+            current_version=_fork_versions(spec)[1],
             epoch=spec.GENESIS_EPOCH,
         ),
         latest_block_header=spec.BeaconBlockHeader(body_root=spec.hash_tree_root(spec.BeaconBlockBody())),
@@ -152,7 +170,52 @@ def genesis(spec, n_validators: int, synthetic_pubkeys: bool = False, seed: int 
     )
     # root a copy, so the state's own registry keeps no cached root
     state.genesis_validators_root = spec.hash_tree_root(state.validators.copy())
+    if spec.fork == "altair":
+        state.previous_epoch_participation = [0] * n_validators
+        state.current_epoch_participation = [0] * n_validators
+        state.inactivity_scores = [0] * n_validators
+        state.current_sync_committee = spec.get_next_sync_committee(state)
+        # the state has not changed, so the spec's second call gives the same committee
+        state.next_sync_committee = state.current_sync_committee.copy()
     return state
+
+
+def draw_participation(spec, state, seed: int, rate: float = 0.95) -> None:
+    """Set both epochs' participation columns from ``seed``: each of a
+    validator's three flags independently with probability ``rate``."""
+    rng = np.random.default_rng([seed, int(state.slot)])
+    n = len(state.validators)
+    for name in ("previous_epoch_participation", "current_epoch_participation"):
+        flags = sum((rng.random(n) < rate).astype(np.uint8) << f for f in range(3))
+        setattr(state, name, flags.tolist())
+
+
+def _first_indices(state) -> dict:
+    """pubkey -> its first index in the registry."""
+    first: dict = {}
+    for index, validator in enumerate(state.validators):
+        first.setdefault(bytes(validator.pubkey), index)
+    return first
+
+
+def sync_aggregate_for_slot(spec, state, seed: int, sign: bool = True, message=None):
+    """The ``SyncAggregate`` of a block at ``state.slot``: the current sync
+    committee's seats, a ~1/16 of them (drawn from ``seed`` and the slot)
+    left off, as a healthy mainnet committee shows, signing the previous
+    slot's block root. With ``sign`` one ``Sign`` by the sum of the
+    participating seats' secret keys (``message``: over that instead of the
+    signing root); otherwise the infinity point."""
+    rng = np.random.default_rng([seed, int(state.slot), 1])
+    bits = (rng.random(int(spec.SYNC_COMMITTEE_SIZE)) >= 1 / 16).tolist()
+    signature = spec.G2_POINT_AT_INFINITY
+    if sign and any(bits):
+        previous_slot = max(int(state.slot), 1) - 1
+        domain = spec.get_domain(state, spec.DOMAIN_SYNC_COMMITTEE, spec.compute_epoch_at_slot(previous_slot))
+        root = spec.compute_signing_root(spec.get_block_root_at_slot(state, previous_slot), domain)
+        first = _first_indices(state)
+        key = sum(first[bytes(pk)] + 1 for pk, bit in zip(state.current_sync_committee.pubkeys, bits) if bit)
+        signature = ciphersuite.Sign(key % R, root if message is None else message)
+    return spec.SyncAggregate(sync_committee_bits=bits, sync_committee_signature=signature)
 
 
 def attestations_for_slot(spec, state, slot: int, split: bool = False, sign: bool = False) -> list:
@@ -193,11 +256,13 @@ def attestations_for_slot(spec, state, slot: int, split: bool = False, sign: boo
     return out
 
 
-def next_block(spec, state, attest: bool = True, split: bool = False, sign: bool = False):
+def next_block(spec, state, attest: bool = True, split: bool = False, sign: bool = False, seed: int = 0):
     """Advance ``state`` to the next slot and apply a block there that
     carries the previous slot's attestations (up to ``MAX_ATTESTATIONS``;
-    ``split``: two per committee). Returns the ``SignedBeaconBlock``,
-    ``state_root`` filled in; ``state`` ends as its post-state.
+    ``split``: two per committee) and, on altair, the sync aggregate of
+    ``sync_aggregate_for_slot`` (its bits from ``seed``). Returns the
+    ``SignedBeaconBlock``, ``state_root`` filled in; ``state`` ends as its
+    post-state.
 
     With ``sign`` every signature is real (privkey(i) = i + 1), made with
     the host ciphersuite whatever ``bls.bls_active`` says; otherwise the
@@ -220,6 +285,8 @@ def next_block(spec, state, attest: bool = True, split: bool = False, sign: bool
     if attest:
         for att in attestations_for_slot(spec, state, slot - 1, split, sign)[: spec.MAX_ATTESTATIONS]:
             block.body.attestations.append(att)
+    if hasattr(block.body, "sync_aggregate"):
+        block.body.sync_aggregate = sync_aggregate_for_slot(spec, state, seed, sign)
     with _checks_off():
         spec.process_block(state, block)
     block.state_root = spec.hash_tree_root(state)
@@ -246,6 +313,23 @@ def tampered_copy(spec, post_state, signed_block, index: int, message: bytes = b
     att = block.body.attestations[index]
     members = spec.get_attesting_indices(post_state, att.data, att.aggregation_bits)
     att.signature = ciphersuite.Sign(sum(int(i) + 1 for i in members) % R, message)
+    return _resealed(spec, post_state, signed_block, block)
+
+
+def tampered_sync_copy(spec, post_state, signed_block, seed: int, message: bytes = b"\x42" * 32):
+    """The same for the block's sync aggregate (altair): the same seats
+    (``seed`` as the block was built with) signing ``message``."""
+    block = signed_block.message.copy()
+    header = post_state.latest_block_header
+    assert header.slot == block.slot
+    block.body.sync_aggregate = sync_aggregate_for_slot(spec, post_state, seed, message=message)
+    assert block.body.sync_aggregate.sync_committee_bits == signed_block.message.body.sync_aggregate.sync_committee_bits
+    return _resealed(spec, post_state, signed_block, block)
+
+
+def _resealed(spec, post_state, signed_block, block):
+    """``block`` (a changed body of ``signed_block``'s, with the same effect
+    on the state) with its ``state_root`` and proposer signature made anew."""
     header = post_state.latest_block_header
     body_root = header.body_root
     header.body_root = spec.hash_tree_root(block.body)

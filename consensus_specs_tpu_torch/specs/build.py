@@ -7,8 +7,8 @@ F *into one namespace*, so later definitions override earlier ones and all
 references late-bind to the final namespace — the same semantics the
 reference gets by emitting one flat module per (fork, preset).
 
-This package carries phase0 only; later forks come with later slices.
-Built modules register as ``consensus_specs_tpu_torch.specs.<fork>_<preset>``
+This package carries phase0 and altair; later forks come with later
+slices. Built modules register as ``consensus_specs_tpu_torch.specs.<fork>_<preset>``
 so they never collide in ``sys.modules`` with the JAX package's modules of
 the same fork and preset.
 """
@@ -21,11 +21,38 @@ from typing import Any, Dict, Optional, Tuple
 
 from ..config import config_for, preset_for
 
-FORK_ORDER = ["phase0"]
+FORK_ORDER = ["phase0", "altair"]
 
 _SOURCE_DIR = Path(__file__).resolve().parent
 _cache: Dict[Tuple, types.ModuleType] = {}
 _code_cache: Dict[str, Any] = {}
+
+# Module hooks: installed-backend shims (e.g. engine.use_vectorized_epoch)
+# run over every built module — retroactively on registration, and on each
+# future build — so a backend switch applies to every (fork, preset)
+# module no matter when it was compiled relative to the switch.
+_module_hooks: list = []
+
+
+def register_module_hook(hook) -> None:
+    """Register ``hook(module)`` to run on every spec module, existing and
+    future. Idempotent per hook object."""
+    if hook not in _module_hooks:
+        _module_hooks.append(hook)
+    for mod in list(_cache.values()):
+        hook(mod)
+
+
+def unregister_module_hook(hook) -> None:
+    """Stop applying ``hook`` to future builds (does not undo its effect
+    on already-built modules — the owner restores those)."""
+    if hook in _module_hooks:
+        _module_hooks.remove(hook)
+
+
+def cached_modules():
+    """Every spec module built so far (hook owners restore through this)."""
+    return list(_cache.values())
 
 
 def _fork_chain(fork: str):
@@ -84,6 +111,8 @@ def build_spec(
         exec(_compiled(f), ns)
     ns["fork"] = fork
     ns["preset_base"] = preset_name
+    for hook in _module_hooks:
+        hook(mod)
 
     _cache[cache_key] = mod
     return mod

@@ -1,8 +1,9 @@
 """The port's kernels on the card — SHA-256 (K1/K2), the base field
 (K3 fq_mul, K4 fq_addsub), the pow chains (K5 fq_pow, K6 fq2_pow), the
 static scalar ladders (K7 g1_mul_static, K8 g2_mul_static), the inversion
-(K9 fq_inv) and the liveness probe — held against their
-plain PyTorch versions, hashlib and Python integers, and the Verify
+(K9 fq_inv), the engine's flag deltas (K10 flag_deltas) and the liveness
+probe — held against their plain PyTorch versions, hashlib and Python
+integers, and the Verify
 family on the card (scalar and batched) against the host oracle. These need
 a CUDA card and skip without one; on the card run them with
 
@@ -14,8 +15,10 @@ import numpy as np
 import pytest
 import torch
 
-from consensus_specs_tpu_torch import probe
+from consensus_specs_tpu_torch import engine, probe
 from consensus_specs_tpu_torch.crypto.bls import ciphersuite as host
+from consensus_specs_tpu_torch.engine import delta_checks as dc
+from consensus_specs_tpu_torch.engine import ops_torch, stages
 from consensus_specs_tpu_torch.ops import bls_torch, fq, fq_cuda, fq_plain, tower
 from consensus_specs_tpu_torch.ops import curve_torch as cj
 from consensus_specs_tpu_torch.ops import ladder_checks as lc
@@ -314,3 +317,53 @@ def test_scalar_and_batched_verify_family_on_the_card(card):
     assert bls_torch.verify_batch(*zip(*rows)).tolist() == [host.Verify(*r) for r in rows] == [True, False, False]
     rows = [(pks[3:], msgs, av), (pks[3:], msgs[::-1], av), ([], [], av)]
     assert bls_torch.aggregate_verify_batch(*zip(*rows)).tolist() == [host.AggregateVerify(*r) for r in rows]
+
+
+def _delta_columns(card, n, seed):
+    cols = dc.columns(n, seed)
+    return cols, (torch.from_numpy(cols[0].view(np.int64)).to(card), torch.from_numpy(cols[1]).to(card),
+                  torch.from_numpy(cols[2]).to(card))
+
+
+@pytest.mark.parametrize("penalize", [True, False], ids=["penalize", "no-penalty"])
+@pytest.mark.parametrize("leak", [False, True], ids=["finalizing", "leaking"])
+@pytest.mark.parametrize("n", [1, 255, 4099, 1 << 19])
+def test_flag_deltas_kernel_matches_plain_version(card, n, leak, penalize):
+    for seed, scalars in enumerate(dc.SCALARS):
+        cols, t = _delta_columns(card, n, seed)
+        before = ops_torch.launches["flag_deltas"]
+        got = ops_torch.flag_deltas_cuda(*t, *scalars, leak, penalize)
+        want = ops_torch.flag_deltas_plain(*t, *scalars, leak, penalize)
+        torch.cuda.synchronize()
+        assert ops_torch.launches["flag_deltas"] == before + 1
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        sample = slice(0, 64) if n > 64 else slice(None)
+        ints = dc.python_deltas(*(c[sample] for c in cols), *scalars, leak, penalize)
+        assert [g[sample].cpu().numpy().view(np.uint64).tolist() for g in got] == list(ints)
+
+
+@pytest.mark.parametrize("penalize", [True, False], ids=["penalize", "no-penalty"])
+@pytest.mark.parametrize("leak", [False, True], ids=["finalizing", "leaking"])
+def test_flag_deltas_kernel_past_int64_matches_python_integers(card, leak, penalize):
+    cols, t = _delta_columns(card, 4099, 11)
+    got = ops_torch.flag_deltas_cuda(*t, *dc.SCALARS_PAST_INT64, leak, penalize)
+    want = dc.python_deltas(*cols, *dc.SCALARS_PAST_INT64, leak, penalize)
+    assert [g.cpu().numpy().view(np.uint64).tolist() for g in got] == list(want)
+
+
+def test_engine_torch_backend_launches_the_kernel(card):
+    cols = dc.columns(1 << 13, 3)
+    args = (*cols, *dc.SCALARS[0], False, True)
+    engine.use_backend("numpy")
+    want = stages._flag_deltas(*args)
+    try:
+        assert engine.use_backend("torch") == "torch"
+        before = ops_torch.launches["flag_deltas"]
+        got = stages._flag_deltas(*args)
+        assert ops_torch.launches["flag_deltas"] == before + 1
+        past = (*cols, *dc.SCALARS_PAST_INT64, False, True)
+        assert [g.tolist() for g in stages._flag_deltas(*past)] == list(dc.python_deltas(*past))
+        assert ops_torch.launches["flag_deltas"] == before + 2  # in K10's range on the card
+    finally:
+        engine.use_backend("numpy")
+    assert all(np.array_equal(a, b) for a, b in zip(got, want))

@@ -10,8 +10,9 @@ import pytest
 import torch
 
 import consensus_specs_tpu_torch
-from consensus_specs_tpu_torch import probe
+from consensus_specs_tpu_torch import engine, probe
 from consensus_specs_tpu_torch.crypto import bls
+from consensus_specs_tpu_torch.engine import delta_checks, ops_torch
 from consensus_specs_tpu_torch.ops import bls_torch, fq_cuda, h2c_torch
 from consensus_specs_tpu_torch.ops import sha256 as tdev
 from consensus_specs_tpu_torch.ops import sha256_cuda
@@ -44,17 +45,23 @@ def test_importing_the_port_loads_neither():
         "from consensus_specs_tpu_torch.ops import sha256, sha256_cuda, sha256_plain\n"
         "from consensus_specs_tpu_torch.ops import fq, fq_cuda, fq_plain, tower, curve_torch, h2c_torch\n"
         "from consensus_specs_tpu_torch.ops import pairing_torch, bls_torch, ladder_checks\n"
-        "from consensus_specs_tpu_torch import probe, sched\n"
+        "from consensus_specs_tpu_torch import probe, sched, engine\n"
+        "from consensus_specs_tpu_torch.engine import backend, crosscheck, delta_checks, ops_torch, stages\n"
         "from consensus_specs_tpu_torch.crypto import bls\n"
         "bls.use_backend('torch', device='cpu')\n"
         "from consensus_specs_tpu_torch.specs import build_spec\n"
         "spec = build_spec('phase0', 'minimal')\n"
         "assert spec.__name__ == 'consensus_specs_tpu_torch.specs.phase0_minimal', spec.__name__\n"
+        "engine.use_vectorized_epoch(); engine.use_batched_attestations()\n"
+        "engine.use_backend('torch', device='cpu')\n"
+        "spec = build_spec('altair', 'minimal')\n"
+        "assert spec.__name__ == 'consensus_specs_tpu_torch.specs.altair_minimal', spec.__name__\n"
+        "assert all(engine.stage_status(spec).values()) and spec.process_operations.engine_batched_atts\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in {'jax', 'jaxlib', 'consensus_specs_tpu'})\n"
         "assert not bad, bad\n"
         "assert sha256_cuda._lib is None  # nothing built at import\n"
         "assert fq_cuda._lib is None and fq_cuda._pow_lib is None and fq_cuda._curve_lib is None\n"
-        "assert probe._lib is None\n"
+        "assert probe._lib is None and ops_torch._lib is None\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=PACKAGE.parent, capture_output=True, text=True,
                           timeout=120)
@@ -73,6 +80,10 @@ def test_entry_points_default_to_cuda(monkeypatch):
         h2c_torch.hash_to_g2_batch([b""])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         probe.probe()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        engine.use_backend("torch")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ops_torch.flag_deltas(*delta_checks.columns(4, 0), *delta_checks.SCALARS[0], False, True)
     prev = bls_torch._device
     try:
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -107,5 +118,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         fq_cuda.g2_mul_static((x.view(1, 2, 32),) * 3, 5)
     assert fq_cuda.launches == before
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ops_torch.flag_deltas_cuda(x[0].long(), x[0].bool(), x[0].bool(), 1, 1, 1, 1, 1, False, True)
+    assert ops_torch.launches["flag_deltas"] == 0
     # the probe's wrapper takes its plain version for a CPU tensor, and counts no launch
     assert torch.equal(probe.add_one(x), x + 1) and probe.launches["add_one"] == 0
