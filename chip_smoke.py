@@ -1,6 +1,6 @@
 """Drive the PyTorch/CUDA port on one CUDA card and check it end to end.
 
-    python3 chip_smoke.py [--seed 0] [--validators 524288] [--slots 2] [--altair-blocks 4]
+    python3 chip_smoke.py [--seed 0] [--validators 524288] [--slots 2] [--altair-blocks 2]
 
 Phases, each raising on any mismatch:
 
@@ -75,11 +75,24 @@ Phases, each raising on any mismatch:
    ``SYNC_CALL_LAUNCHES``; the block at 96 runs epoch 2 -> 3 (K10 three
    times at ``--validators`` rows), timed against the numpy engine's. Then
    the last block again on its pre-state, its sync aggregate signing
-   another root: exactly that row fails, and the host oracle agrees. K10 is then held bit-exact against
-   its plain version on the epoch's own columns and seeded edge rows, and
-   against Python integers past 2^63, and timed. After it the K3-K9 checks
-   run again at every size the phase0 and altair flushes launched.
-7. fq timing: the K3/K4 kernels (lane-group and one-thread) timed in
+   another root: exactly that row fails, and the host oracle agrees.
+7. capella: the same chain on capella, post-merge (the genesis state's
+   execution payload header that of an empty payload), with 1/256 of the
+   registry (2,048 at 2^19, drawn from the seed) on eth1 credentials,
+   exited at epoch 2 and withdrawable from it; ``CAPELLA_BLOCKS`` (3)
+   signed blocks from slot 95, each as altair's plus an empty execution payload
+   carrying the expected withdrawals and 16 BLS-to-execution changes of
+   validators still on BLS credentials (147 checks a block: the first call
+   146 rows of the 128-key bucket). Epoch 2 -> 3 sweeps the backlog into
+   the withdrawals queue (``full_withdrawals``, a stage of the engine) and
+   the payloads after it carry 16 withdrawals each; the tampered block has
+   one change signed over another root. The altair and capella sync calls
+   together must run both ``SYNC_CALL_LAUNCHES`` variants. K10 is then held
+   bit-exact against its plain version on altair's epoch columns and
+   seeded edge rows, and against Python integers past 2^63, and timed.
+   After it the K3-K9 checks run again at every size the phase0, altair
+   and capella flushes launched.
+8. fq timing: the K3/K4 kernels (lane-group and one-thread) timed in
    turns in one profiler window per size, at 4,608 and 16,384 elements and
    at each kernel's two most frequent sizes of that histogram, beside the
    bound and the launch floor (the probe's device time). K5/K6 at every
@@ -426,6 +439,7 @@ def phase_fq_kernels(report: dict, seed: int, sizes: list, label: str) -> None:
     pairs; against Python integers on a sample and every edge row; a
     stride-0 operand in either position. ``report["fq_checks"]`` keeps
     each kernel's largest error over every call."""
+    t0 = time.perf_counter()
     rng = np.random.default_rng([seed, *sizes])
     errs = report.setdefault("fq_checks", {})
     for n in sizes:
@@ -450,8 +464,8 @@ def phase_fq_kernels(report: dict, seed: int, sizes: list, label: str) -> None:
                 errs[key] = max(errs.get(key, 0), err)
     report.setdefault("fq_checked_sizes", []).extend(sizes)
     print(f"[kernels] K3/K4 ({label}): main (lane-group) and one-thread kernels bit-exact at {sizes} elements, "
-          f"{len(EDGE_PAIRS)} edge pairs where n has room, ops {list(OPS)}, stride 0 either side: {errs}",
-          flush=True)
+          f"{len(EDGE_PAIRS)} edge pairs where n has room, ops {list(OPS)}, stride 0 either side: {errs} "
+          f"({time.perf_counter() - t0:.1f}s)", flush=True)
 
 
 def phase_fq_timing(report: dict, card: "Card", seed: int, hist: dict) -> None:
@@ -576,21 +590,28 @@ def phase_pow_kernels(report: dict, seed: int, sizes: dict, label: str) -> None:
     """K5/K6 bit-exact against their plain versions on the card, for each
     of the four exponents, at each of ``sizes[name]`` elements, random and
     edge values; against Python integers on a sample and every edge row.
-    ``report["fq_checks"]`` keeps each kernel's largest error."""
+    The kernel is launched at each size; the plain version, elementwise and
+    launch-bound whatever its rows, runs once an exponent on the rows of
+    every size together. ``report["fq_checks"]`` keeps each kernel's
+    largest error."""
+    t0 = time.perf_counter()
     rng = np.random.default_rng([seed, 5])
     errs = report.setdefault("fq_checks", {})
     for name, k in POW.items():
-        degree = k["degree"]
-        for n in sizes[name]:
-            a, ints = pow_operand(n, degree, rng)
-            edges = edge_rows(n, degree)
-            sample = sorted(set(range(0, n, max(1, n // 64))) | set(range(n - edges, n)))
-            for exp_name, e in fq_plain.EXPONENTS.items():
-                bits = fq_plain.bits_msb(e)
+        degree, ns = k["degree"], sizes[name]
+        if not ns:
+            continue
+        operands = [pow_operand(n, degree, rng) for n in ns]
+        rows = torch.cat([a for a, _ in operands])
+        for exp_name, e in fq_plain.EXPONENTS.items():
+            bits = fq_plain.bits_msb(e)
+            wants = k["plain"](rows, bits).split(ns)
+            for n, (a, ints), want in zip(ns, operands, wants):
                 got = k["kernel"](a, bits)
                 torch.cuda.synchronize()
-                err = max_abs_err(got, k["plain"](a, bits))
+                err = max_abs_err(got, want)
                 require(err == 0, f"{name} {exp_name} disagrees with its plain version at {n} (max abs err {err})")
+                sample = sorted(set(range(0, n, max(1, n // 64))) | set(range(n - edge_rows(n, degree), n)))
                 values = fq.from_limbs(got[sample].cpu().numpy())
                 values = list(values) if degree == 1 else [tuple(v) for v in values]
                 require(values == [fq_plain.pow_int(ints[i], e, degree) for i in sample],
@@ -599,7 +620,7 @@ def phase_pow_kernels(report: dict, seed: int, sizes: dict, label: str) -> None:
     report.setdefault("pow_checked_sizes", []).append(sizes)
     print(f"[kernels] K5/K6 ({label}): bit-exact at {sizes} elements for exponents {list(fq_plain.EXPONENTS)}, "
           f"edge values where n has room, Python integers on a sample: "
-          f"{ {k: errs[k] for k in POW} }", flush=True)
+          f"{ {k: errs[k] for k in POW} } ({time.perf_counter() - t0:.1f}s)", flush=True)
 
 
 def loop_turns(symbol: str, new, old, reps: int, windows: int = 3) -> dict:
@@ -704,26 +725,30 @@ P_MINUS_2_BITS = fq_plain.bits_msb(P - 2)
 
 def phase_inv_kernels(report: dict, seed: int, sizes: list, label: str) -> None:
     """K9 bit-exact against its plain version (Fermat's a^(p-2) on the
-    card) at each of ``sizes`` elements, on random values with
-    ``FQ_EDGES`` as the last rows where n has room, and against Python
-    integers on a sample and every edge row. ``report["fq_checks"]`` keeps
-    its largest error."""
+    card, once on the rows of every size together, as the K5/K6 checks) at
+    each of ``sizes`` elements, on random values with ``FQ_EDGES`` as the
+    last rows where n has room, and against Python integers on a sample
+    and every edge row. ``report["fq_checks"]`` keeps its largest error."""
+    t0 = time.perf_counter()
     rng = np.random.default_rng([seed, 11])
     errs = report.setdefault("fq_checks", {})
-    for n in sizes:
-        a, ints = pow_operand(n, 1, rng)
-        got = fq_cuda.fq_inv(a)
-        torch.cuda.synchronize()
-        err = max_abs_err(got, fq_plain.pow_bits(a, P_MINUS_2_BITS))
-        require(err == 0, f"fq_inv disagrees with its plain version at {n} (max abs err {err})")
-        sample = sorted(set(range(0, n, max(1, n // 64))) | set(range(n - edge_rows(n, 1), n)))
-        require(list(fq.from_limbs(got[sample].cpu().numpy())) == [fq_plain.pow_int(ints[i], P - 2, 1)
-                                                                   for i in sample],
-                f"fq_inv disagrees with Python integers at {n}")
-        errs["fq_inv"] = max(errs.get("fq_inv", 0), err)
+    if sizes:
+        operands = [pow_operand(n, 1, rng) for n in sizes]
+        wants = fq_plain.pow_bits(torch.cat([a for a, _ in operands]), P_MINUS_2_BITS).split(sizes)
+        for n, (a, ints), want in zip(sizes, operands, wants):
+            got = fq_cuda.fq_inv(a)
+            torch.cuda.synchronize()
+            err = max_abs_err(got, want)
+            require(err == 0, f"fq_inv disagrees with its plain version at {n} (max abs err {err})")
+            sample = sorted(set(range(0, n, max(1, n // 64))) | set(range(n - edge_rows(n, 1), n)))
+            require(list(fq.from_limbs(got[sample].cpu().numpy())) == [fq_plain.pow_int(ints[i], P - 2, 1)
+                                                                       for i in sample],
+                    f"fq_inv disagrees with Python integers at {n}")
+            errs["fq_inv"] = max(errs.get("fq_inv", 0), err)
     report.setdefault("inv_checked_sizes", []).append(sizes)
     print(f"[kernels] K9 ({label}): bit-exact against Fermat's a^(p-2) at {sizes} elements, {len(FQ_EDGES)} edge "
-          f"values where n has room, Python integers on a sample: {errs['fq_inv']}", flush=True)
+          f"values where n has room, Python integers on a sample: {errs.get('fq_inv')} "
+          f"({time.perf_counter() - t0:.1f}s)", flush=True)
 
 
 def phase_inv_timing(report: dict, card: "Card", seed: int, hist: dict) -> None:
@@ -806,33 +831,39 @@ def phase_ladder_kernels(report: dict, seed: int, sizes: dict, label: str) -> No
     of the generator as random Jacobian representatives, with the edge
     points (infinity, a point outside the r-torsion, on G1 the 3-torsion
     points (0, 2) and (0, -2)) as the last rows where n has room. The plain
-    runs launch no kernel, and their points of a sample and of every edge
-    row equal the host oracle's. ``report["fq_checks"]`` keeps each
-    kernel's largest error."""
+    version runs once a scalar on the points of every size together (as
+    the K5/K6 checks), launches no kernel, and its points of a sample and
+    of every edge row equal the host oracle's. ``report["fq_checks"]``
+    keeps each kernel's largest error."""
+    t0 = time.perf_counter()
     rng = np.random.default_rng([seed, 8])
     k_random = int(rng.integers(1 << 40, 1 << 62)) | 1 << 63
     errs = report.setdefault("fq_checks", {})
     for name, spec in LADDER.items():
-        g2 = spec["g2"]
-        for n in sizes[name]:
-            pt, hosts = lc.ladder_points(n, g2, rng, "cuda")
-            edges = len(lc.ladder_edges(g2)) if n >= 16 else 0
-            sample = sorted(set(range(0, n, max(1, n // 16))) | set(range(n - edges, n)))
-            for k in (cj.X_PARAM, k_random):
+        g2, ns = spec["g2"], sizes[name]
+        if not ns:
+            continue
+        operands = [lc.ladder_points(n, g2, rng, "cuda") for n in ns]
+        rows = tuple(torch.cat([pt[c] for pt, _ in operands]) for c in range(3))
+        for k in (cj.X_PARAM, k_random):
+            before = dict(fq_cuda.launches)
+            want = cj.scalar_mul_static_plain(spec["F"], rows, k)
+            require(fq_cuda.launches == before, f"the plain ladder launched: {before} -> {fq_cuda.launches}")
+            wants = list(zip(*(c.split(ns) for c in want)))
+            for n, (pt, hosts), want_n in zip(ns, operands, wants):
                 got = spec["kernel"](pt, k)
                 torch.cuda.synchronize()
-                before = dict(fq_cuda.launches)
-                want = cj.scalar_mul_static_plain(spec["F"], pt, k)
-                require(fq_cuda.launches == before, f"the plain ladder launched: {before} -> {fq_cuda.launches}")
-                err = max(max_abs_err(x, y) for x, y in zip(got, want))
+                err = max(max_abs_err(x, y) for x, y in zip(got, want_n))
                 require(err == 0, f"{name} k={k:#x} disagrees with its plain version at {n} (max abs err {err})")
+                edges = len(lc.ladder_edges(g2)) if n >= 16 else 0
+                sample = sorted(set(range(0, n, max(1, n // 16))) | set(range(n - edges, n)))
                 require(lc.limbs_to_ints(got, g2, sample) == [lc.point_ints(hosts[i].mul(k)) for i in sample],
                         f"{name} k={k:#x} disagrees with the host oracle at {n}")
                 errs[name] = max(errs.get(name, 0), err)
     report.setdefault("ladder_checked_sizes", []).append(sizes)
     print(f"[kernels] K7/K8 ({label}): bit-exact against the plain version at {sizes} elements for k = |x| and "
           f"{k_random:#x}, edge points where n has room, host oracle on a sample: "
-          f"{ {k: errs[k] for k in LADDER} }", flush=True)
+          f"{ {k: errs.get(k) for k in LADDER} } ({time.perf_counter() - t0:.1f}s)", flush=True)
 
 
 def phase_ladder_timing(report: dict, card: "Card", seed: int, hist: dict) -> None:
@@ -1211,12 +1242,21 @@ def tampered_phase(report: dict, spec, states: tuple, seed: int) -> None:
           f"host oracle agrees, replay raised {raised} ({seconds:.3f}s)", flush=True)
 
 
-# The altair chain: 94 empty slots from genesis cross the epoch boundaries
-# 0 -> 1 and 1 -> 2 through the engine; the blocks at 95, 96, ... then
-# carry attestations and a sync aggregate, and the one at 96 runs epoch
-# 2 -> 3, where justification and rewards both run (K10 three times, one
-# launch a flag).
-ALTAIR_ADVANCE_SLOT = 3 * 32 - 2
+# The altair and capella chains: 94 empty slots from genesis cross the
+# epoch boundaries 0 -> 1 and 1 -> 2 through the engine; the blocks at 95,
+# 96, ... then carry attestations and a sync aggregate (capella: and an
+# execution payload and BLS-to-execution changes), and the one at 96 runs
+# epoch 2 -> 3, where justification and rewards both run (K10 three times,
+# one launch a flag) and, on capella, the full-withdrawals sweep.
+CHAIN_ADVANCE_SLOT = 3 * 32 - 2
+# capella's blocks: 95, the boundary block 96 (its epoch processing sweeps
+# the backlog, its payload pays the first 16 withdrawals) and 97 (the next 16)
+CAPELLA_BLOCKS = 3
+# capella: 1/256 of the registry (2,048 of 2^19) is a withdrawal backlog,
+# exited at epoch 2 and withdrawable from it, so the sweep at 2 -> 3 takes
+# it; the chain is post-merge, as mainnet's was at capella
+WITHDRAWING_SHARE = 256
+WITHDRAWAL_EPOCH = 2
 FLAG_DELTAS_SOURCE = "consensus_specs_tpu_torch/ops/csrc/flag_deltas.cu"
 FLAG_DELTAS_REPLACES = "consensus_specs_tpu/engine/ops_jax.py:29"
 K10_ROW_BYTES = 8 + 1 + 1 + 8 + 8  # increments, two masks in; rewards, penalties out
@@ -1229,6 +1269,10 @@ K10_ROW_BYTES = 8 + 1 + 1 + 8 + 8  # increments, two masks in; rewards, penaltie
 # Counted on the CPU by wrapping the plain dispatch points (fq_plain's mul,
 # addsub, pow_bits, fq2_pow_bits and curve_torch.scalar_mul_static_plain),
 # which the counts do not depend on, on one row of 300 and of 480 keys.
+# A capella block's 16 BLS-to-execution changes are 16 more Verify rows in
+# the first call (146 rows): its launches depend on the key count and on
+# whether it decodes, not on its rows, so FLUSH_LAUNCHES holds for it too
+# (counted the same way on a 128-key row beside 1 and 2 one-key rows).
 SYNC_CALL_LAUNCHES = {
     "decode": {"fq_mul": 1224, "fq_addsub": 9118, "fq_pow": 2, "fq2_pow": 4, "g1_mul_static": 2,
                "g2_mul_static": 3, "fq_inv": 4},
@@ -1284,41 +1328,50 @@ class Timed:
             setattr(self.spec, n, fn)
 
 
-def altair_phase(report: dict, seed: int, validators: int, n_blocks: int) -> tuple:
-    """The altair chain at ``validators`` validators with real keys: genesis
-    (both sync committees), 94 empty slots through the engine on the torch
-    backend (K10) and the device hasher, participation drawn from the
-    seed, then ``n_blocks`` signed blocks at slots 95, 96, ... (128
-    attestations in halves and a sync aggregate of ~1/16 seats off), and
-    the last of them again with its sync aggregate over another root. The host run builds them with the numpy engine, the host
+def chain_phase(report: dict, fork: str, seed: int, validators: int, n_blocks: int) -> tuple:
+    """The altair or capella chain at ``validators`` validators with real
+    keys: genesis (both sync committees; capella: post-merge, with the
+    withdrawal backlog ``harness.draw_withdrawing`` draws from the seed),
+    94 empty slots through the engine on the torch backend (K10) and the
+    device hasher, participation drawn from the seed, then ``n_blocks``
+    signed blocks at slots 95, 96, ... (128 attestations in halves and a
+    sync aggregate of ~1/16 seats off; capella: an empty execution payload
+    with the expected withdrawals and 16 BLS-to-execution changes), and the
+    last of them again with its sync aggregate (capella: one change) over
+    another root. The host run builds them with the numpy engine, the host
     hasher and the reference BLS (checks off while building); the device
     run applies them with K10, the device hasher and one deferred flush a
     block on the card, and must reach the host's post-state root at every
-    block. Returns the main path's counts (K3-K10), the flushes' size
-    histogram and K10's calls (their columns)."""
-    spec = build_spec("altair", "mainnet")
+    block. Returns the main path's counts (K1-K10), the flushes' size
+    histogram, K10's calls (their columns) and each block's sync-call
+    variant."""
+    spec = build_spec(fork, "mainnet")
+    capella = fork == "capella"
     engine.use_vectorized_epoch()
     engine.use_batched_attestations()
     engine.use_backend("torch")
     bls.bls_active = False
     dev.use_device_hasher(calibrate=False)
     t0 = time.perf_counter()
-    state = harness.genesis(spec, validators)
+    state = harness.genesis(spec, validators, post_merge=capella)
+    withdrawing = harness.draw_withdrawing(spec, state, seed, validators // WITHDRAWING_SHARE, WITHDRAWAL_EPOCH) \
+        if capella else []
     genesis_s = time.perf_counter() - t0
     require(len(set(state.current_sync_committee.pubkeys)) > 500, "a degenerate sync committee")
     ops_torch.reset_counters()
     with Timed(spec, "process_epoch") as epochs:
         t0 = time.perf_counter()
-        spec.process_slots(state, ALTAIR_ADVANCE_SLOT)
+        spec.process_slots(state, CHAIN_ADVANCE_SLOT)
         torch.cuda.synchronize()
         advance_s = time.perf_counter() - t0
     advance_k10 = dict(ops_torch.sizes["flag_deltas"])
     require(sum(advance_k10.values()) == 3, f"the advance launched K10 {advance_k10}, not 3 times at epoch 1 -> 2")
+    require(not capella or len(state.withdrawals_queue) == 0, "the backlog was swept before epoch 2 -> 3")
     harness.draw_participation(spec, state, seed)
     host_state = state.copy()
-    print(f"[altair] genesis of {validators} validators {genesis_s:.1f}s; {ALTAIR_ADVANCE_SLOT} empty slots "
-          f"{advance_s:.1f}s (epoch processing {epochs.seconds['process_epoch']:.1f}s, K10 {advance_k10})",
-          flush=True)
+    print(f"[{fork}] genesis of {validators} validators{f' ({len(withdrawing)} withdrawing)' if capella else ''} "
+          f"{genesis_s:.1f}s; {CHAIN_ADVANCE_SLOT} empty slots {advance_s:.1f}s (epoch processing "
+          f"{epochs.seconds['process_epoch']:.1f}s, K10 {advance_k10})", flush=True)
 
     # the host run: numpy engine, host hasher, reference BLS; builds the blocks
     engine.use_backend("numpy")
@@ -1332,7 +1385,13 @@ def altair_phase(report: dict, seed: int, validators: int, n_blocks: int) -> tup
             blocks.append(harness.next_block(spec, host_state, split=True, sign=True, seed=seed))
             host_times.append(time.perf_counter() - t0)
             host_roots.append(spec.hash_tree_root(host_state))
-    tampered = harness.tampered_sync_copy(spec, host_state, blocks[-1], seed)
+    if capella:
+        change = (37 * seed + 5) % len(blocks[-1].message.body.bls_to_execution_changes)
+        tampered = harness.tampered_change_copy(spec, host_state, blocks[-1], change)
+        bad_signature = bytes(tampered.message.body.bls_to_execution_changes[change].signature)
+    else:
+        tampered = harness.tampered_sync_copy(spec, host_state, blocks[-1], seed)
+        bad_signature = bytes(tampered.message.body.sync_aggregate.sync_committee_signature)
     require(host_epoch.seconds["process_epoch"] > 0, "the blocks cross no epoch boundary")
     n_att = [len(b.message.body.attestations) for b in blocks]
     full = min(spec.MAX_ATTESTATIONS, 2 * int(spec.get_committee_count_per_slot(host_state, 0)))
@@ -1345,6 +1404,7 @@ def altair_phase(report: dict, seed: int, validators: int, n_blocks: int) -> tup
     bls.bls_active = True
     spec._shuffle_cache.clear()
     spec._active_indices_cache.clear()
+    dev.reset_counters()
     fq_cuda.reset_counters()
     ops_torch.reset_counters()
     k10_calls = []
@@ -1362,6 +1422,8 @@ def altair_phase(report: dict, seed: int, validators: int, n_blocks: int) -> tup
             for i, (sb, want) in enumerate(zip(blocks, host_roots)):
                 if i == len(blocks) - 1:
                     last_pre = state.copy()  # the tampered copy of this block goes there
+                body = sb.message.body
+                queued = len(state.withdrawals_queue) if capella else 0
                 before_sizes = {k: dict(fq_cuda.sizes[k]) for k in fq_cuda.KERNELS}
                 t0 = time.perf_counter()
                 with CallRecorder() as rec:
@@ -1369,26 +1431,31 @@ def altair_phase(report: dict, seed: int, validators: int, n_blocks: int) -> tup
                 torch.cuda.synchronize()
                 block_s = time.perf_counter() - t0
                 got = spec.hash_tree_root(state)
-                require(got == want, f"altair slot {int(state.slot)}: device root {got.hex()} host {want.hex()}")
-                bits = list(sb.message.body.sync_aggregate.sync_committee_bits)
+                require(got == want, f"{fork} slot {int(state.slot)}: device root {got.hex()} host {want.hex()}")
+                bits = list(body.sync_aggregate.sync_committee_bits)
                 sync_rows = [j for j, k in enumerate(verifier.entries) if k[0] == "fav" and len(k[1]) == sum(bits)]
                 require(len(sync_rows) == 1 and 256 < sum(bits) <= 512, f"sync rows {sync_rows}, {sum(bits)} bits")
                 fav = [j for j, k in enumerate(verifier.entries) if k[0] == "fav" and j not in sync_rows]
                 v = [j for j, k in enumerate(verifier.entries) if k[0] == "v"]
-                sampled = v[:2] + fav[:1] + fav[-1:] + (sync_rows if i == 0 else [])
+                changes = len(body.bls_to_execution_changes) if capella else 0
+                require(len(v) == 2 + changes, f"{len(v)} Verify rows, not the proposer's, the randao's and "
+                        f"{changes} changes")
+                # the proposer's, the randao's, the first and last attestation, the last change
+                sampled = v[:2] + fav[:1] + fav[-1:] + v[2:][-1:] + (sync_rows if i == 0 else [])
                 t1 = time.perf_counter()
                 for j in sampled:
                     require(_oracle(verifier.entries[j]) == verifier.results[j],
-                            f"altair slot {int(state.slot)}: host oracle disagrees on row {j}")
+                            f"{fork} slot {int(state.slot)}: host oracle disagrees on row {j}")
                 oracle_s = time.perf_counter() - t1
                 launches = {k: sum(c["launches"][k] for c in rec.calls) for k in fq_cuda.KERNELS}
                 variant = "decode" if rec.calls[-1]["decoded"] else "cached"  # the sync row is the last bucket
                 if expect:
-                    require([c["keys"] for c in rec.calls] == [128, sum(bits)],
-                            f"the flush's calls took {[c['keys'] for c in rec.calls]} keys, not [128, {sum(bits)}]")
+                    require([(c["rows"], c["keys"]) for c in rec.calls] == [(len(v) + len(fav), 128), (1, sum(bits))],
+                            f"the flush's calls took {[(c['rows'], c['keys']) for c in rec.calls]} rows and keys, not "
+                            f"[({len(v) + len(fav)}, 128), (1, {sum(bits)})]")
                     require(rec.calls[0]["launches"] == FLUSH_LAUNCHES and
                             rec.calls[1]["launches"] == SYNC_CALL_LAUNCHES[variant],
-                            f"altair slot {int(state.slot)}: the flush's calls made "
+                            f"{fork} slot {int(state.slot)}: the flush's calls made "
                             f"{[c['launches'] for c in rec.calls]} launches, not {FLUSH_LAUNCHES} and "
                             f"{SYNC_CALL_LAUNCHES[variant]} ({variant})")
                 for k in fq_cuda.KERNELS:
@@ -1398,9 +1465,16 @@ def altair_phase(report: dict, seed: int, validators: int, n_blocks: int) -> tup
                 rec_ = {"slot": int(state.slot), "checks": len(set(verifier.entries)), "rows_true": sum(verifier.results),
                         "sync_keys": sum(bits), "block_s": block_s, "flush_s": verifier.flush_s, "calls": rec.calls,
                         "sync_call": variant, "launches": launches, "oracle_rows": len(sampled), "oracle_s": oracle_s}
+                extra = ""
+                if capella:
+                    paid = len(body.execution_payload.withdrawals)
+                    rec_.update(changes=changes, withdrawals=paid, queue=len(state.withdrawals_queue),
+                                swept=len(state.withdrawals_queue) + paid - queued)
+                    extra = (f", {changes} BLS changes, {paid} withdrawals paid, {rec_['swept']} swept, queue "
+                             f"{rec_['queue']}")
                 per_block.append(rec_)
-                print(f"[altair] slot {rec_['slot']}: {rec_['checks']} checks all true ({sum(bits)}-key sync "
-                      f"aggregate), block {block_s:.3f}s, flush {verifier.flush_s:.3f}s in "
+                print(f"[{fork}] slot {rec_['slot']}: {rec_['checks']} checks all true ({sum(bits)}-key sync "
+                      f"aggregate{extra}), block {block_s:.3f}s, flush {verifier.flush_s:.3f}s in "
                       f"{len(rec.calls)} calls of {[c['rows'] for c in rec.calls]} rows and "
                       f"{[c['keys'] for c in rec.calls]} keys, sync call {variant}, K3-K9 launches {launches}, "
                       f"root = host's, oracle agrees on {len(sampled)} rows ({oracle_s:.1f}s)", flush=True)
@@ -1409,21 +1483,34 @@ def altair_phase(report: dict, seed: int, validators: int, n_blocks: int) -> tup
     k10 = dict(ops_torch.sizes["flag_deltas"])
     require(k10 == {validators: 3}, f"the blocks launched K10 {k10}, not 3 times at {validators} rows")
     require(len(k10_calls) == 3, f"{len(k10_calls)} flag_deltas calls, not 3")
+    sha_launches = dev.counters()["launches"]
+    if capella:
+        swept, paid = [r["swept"] for r in per_block], [r["withdrawals"] for r in per_block]
+        boundary = next(i for i, sb in enumerate(blocks) if int(sb.message.slot) % spec.SLOTS_PER_EPOCH == 0)
+        require(swept == [len(withdrawing) if i == boundary else 0 for i in range(len(blocks))],
+                f"the sweeps took {swept} validators, not the {len(withdrawing)} withdrawing at epoch 2 -> 3")
+        require(all(state.validators[i].fully_withdrawn_epoch == WITHDRAWAL_EPOCH for i in withdrawing),
+                "a withdrawing validator was not fully withdrawn")
+        if expect:
+            require(paid == [spec.MAX_WITHDRAWALS_PER_PAYLOAD if i >= boundary else 0 for i in range(len(blocks))],
+                    f"the payloads carried {paid} withdrawals")
+            require(all(r["checks"] == full + 3 + spec.MAX_BLS_TO_EXECUTION_CHANGES for r in per_block),
+                    f"checks a block {[r['checks'] for r in per_block]}")
 
-    # the last block once more, its sync aggregate signing another root
+    # the last block once more, its sync aggregate (capella: one change) signing another root
     verifier = bls.DeferredVerifier()
     try:
         harness.apply_block_deferred(spec, last_pre.copy(), tampered, pre_state=last_pre, verifier=verifier)
     except AssertionError as e:
         require("replayed transition accepted" not in str(e), str(e))
     else:
-        raise AssertionError("the tampered altair block was accepted")
+        raise AssertionError(f"the tampered {fork} block was accepted")
+    what = "BLS-to-execution change" if capella else "sync aggregate"
     false_rows = [j for j, r in enumerate(verifier.results) if not r]
-    require(len(false_rows) == 1, f"{len(false_rows)} rows rejected, not exactly the tampered sync aggregate")
+    require(len(false_rows) == 1, f"{len(false_rows)} rows rejected, not exactly the tampered {what}")
     key = verifier.entries[false_rows[0]]
-    require(key[0] == "fav" and key[3] == bytes(tampered.message.body.sync_aggregate.sync_committee_signature),
-            "the rejected row is not the tampered sync aggregate")
-    require(_oracle(key) is False, "the host oracle accepts the tampered sync aggregate")
+    require(key[0] == ("v" if capella else "fav") and key[3] == bad_signature, f"the rejected row is not the tampered {what}")
+    require(_oracle(key) is False, f"the host oracle accepts the tampered {what}")
     bls.use_reference()
     dev.use_host_hasher()
     engine.use_backend("numpy")
@@ -1431,7 +1518,7 @@ def altair_phase(report: dict, seed: int, validators: int, n_blocks: int) -> tup
     engine.use_direct_attestations()
 
     timed = per_block[1:] or per_block
-    report["altair"] = {
+    report[fork] = {
         "validators": validators, "genesis_s": genesis_s, "advance_s": advance_s,
         "advance_epoch_s": epochs.seconds["process_epoch"], "advance_k10": advance_k10,
         "host_block_s": host_times, "attestations": n_att, "blocks": per_block,
@@ -1440,21 +1527,22 @@ def altair_phase(report: dict, seed: int, validators: int, n_blocks: int) -> tup
                      "host_epoch_s": host_epoch.seconds["process_epoch"],
                      "host_rewards_s": host_epoch.seconds["process_rewards_and_penalties"],
                      "device_stage_s": dev_epoch.seconds, "host_stage_s": host_epoch.seconds},
-        "flush_sizes": hist, "k10_launches": k10,
+        "flush_sizes": hist, "k10_launches": k10, "sha256_launches": sha_launches,
         "checks_per_s": sum(r["checks"] for r in timed) / sum(r["flush_s"] for r in timed),
-        "tampered_rejected": false_rows,
+        "tampered_rejected": false_rows, "withdrawing": len(withdrawing),
     }
-    b = report["altair"]["boundary"]
-    print(f"[altair] epoch 2 -> 3 by stage, seconds on the card (K10, device hasher) / numpy engine (host hasher): "
+    b = report[fork]["boundary"]
+    print(f"[{fork}] epoch 2 -> 3 by stage, seconds on the card (K10, device hasher) / numpy engine (host hasher): "
           f"{ {n.replace('process_', ''): (round(dev_epoch.seconds[n], 3), round(host_epoch.seconds[n], 3)) for n in stage_names} }",
           flush=True)
-    print(f"[altair] {n_blocks} signed blocks from slot {ALTAIR_ADVANCE_SLOT + 1}, every root the host's; epoch 2 -> 3 "
+    print(f"[{fork}] {n_blocks} signed blocks from slot {CHAIN_ADVANCE_SLOT + 1}, every root the host's; epoch 2 -> 3 "
           f"on the card {b['device_epoch_s']:.2f}s (rewards {b['device_rewards_s']:.2f}s, K10 {k10}) against the numpy "
           f"engine's {b['host_epoch_s']:.2f}s (rewards {b['host_rewards_s']:.2f}s); "
-          f"{report['altair']['checks_per_s']:.2f} checks/s; the tampered sync aggregate alone rejected, the host "
-          f"oracle agrees", flush=True)
+          f"{report[fork]['checks_per_s']:.2f} checks/s; K1/K2 launches {sha_launches}; the tampered {what} alone "
+          f"rejected, the host oracle agrees", flush=True)
     launches = {k: sum(r["launches"][k] for r in per_block) for k in fq_cuda.KERNELS}
-    return {"launches": {**launches, "flag_deltas": sum(k10.values())}}, hist, k10_calls
+    counts = {"launches": {**launches, **sha_launches, "flag_deltas": sum(k10.values())}}
+    return counts, hist, k10_calls, [r["sync_call"] for r in per_block]
 
 
 def phase_flag_deltas(report: dict, card: "Card", seed: int, epoch_calls: list) -> None:
@@ -1586,7 +1674,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--validators", type=int, default=DEFAULT_VALIDATORS)
     ap.add_argument("--slots", type=int, default=2)  # 2 + 2 phase0 slots leave the altair phase its time
-    ap.add_argument("--altair-blocks", type=int, default=4)
+    ap.add_argument("--altair-blocks", type=int, default=2)  # 95 and the boundary block 96
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1645,13 +1733,20 @@ def main() -> int:
     bls.use_reference()
     dev.use_host_hasher()
     del states, genesis
-    altair_counts, altair_hist, k10_calls = altair_phase(report, args.seed, args.validators, args.altair_blocks)
+    altair_counts, altair_hist, k10_calls, variants = chain_phase(
+        report, "altair", args.seed, args.validators, args.altair_blocks)
     done("altair")
+    capella_counts, capella_hist, _, capella_variants = chain_phase(
+        report, "capella", args.seed, args.validators, CAPELLA_BLOCKS)
+    done("capella")
+    if args.validators == DEFAULT_VALIDATORS:  # both pinned sync calls ran on the card
+        require(set(variants + capella_variants) == set(SYNC_CALL_LAUNCHES),
+                f"the sync calls ran {variants} (altair) and {capella_variants} (capella), not both variants")
     phase_flag_deltas(report, card, args.seed, k10_calls)
     done("flag_deltas")
-    # the checks at every size a flush launched (the phase0 and the altair
-    # flushes) that the kernel checks above did not cover
-    sizes = {k: set(altair_hist[k]) | set(hist[k]) for k in fq_cuda.KERNELS}
+    # the checks at every size a flush launched (the phase0, altair and
+    # capella flushes) that the kernel checks above did not cover
+    sizes = {k: set(altair_hist[k]) | set(capella_hist[k]) | set(hist[k]) for k in fq_cuda.KERNELS}
     label = "every other size a flush launched"
     phase_fq_kernels(report, args.seed, sorted((sizes["fq_mul"] | sizes["fq_addsub"]) - set(FQ_SIZES)), label)
     phase_pow_kernels(report, args.seed, {name: sorted(sizes[name] - set(POW_SIZES)) for name in POW}, label)
@@ -1666,7 +1761,7 @@ def main() -> int:
     report["total_s"] = time.perf_counter() - t_start
     print(f"[phases] seconds: { {k: round(v, 1) for k, v in report['phase_s'].items()} }", flush=True)
 
-    records = kernel_records(report, (root_counts, transition_counts, bls_counts, altair_counts))
+    records = kernel_records(report, (root_counts, transition_counts, bls_counts, altair_counts, capella_counts))
     print("[report]", json.dumps(report, default=str))
     print(json.dumps({
         "kernels": records,
@@ -1680,6 +1775,9 @@ def main() -> int:
         "altair_checks_per_s": report["altair"]["checks_per_s"],
         "altair_epoch_s": report["altair"]["boundary"]["device_epoch_s"],
         "altair_epoch_numpy_s": report["altair"]["boundary"]["host_epoch_s"],
+        "capella_checks_per_s": report["capella"]["checks_per_s"],
+        "capella_epoch_s": report["capella"]["boundary"]["device_epoch_s"],
+        "capella_epoch_numpy_s": report["capella"]["boundary"]["host_epoch_s"],
         "total_s": report["total_s"],
     }))
     print(report["env"]["card"])

@@ -2,17 +2,16 @@
 processing behind the compiled spec modules.
 
 The port's copy of the JAX package's engine, for the forks the port
-builds (phase0 and altair). The crypto plane (BLS, SHA-256) runs as
-batched kernels on the card; this subsystem is the protocol plane's
-batching layer:
+builds (phase0, altair, bellatrix and capella). The crypto plane (BLS,
+SHA-256) runs as batched kernels on the card; this subsystem is the
+protocol plane's batching layer:
 
 - :mod:`plane` — ``StatePlane``, the SoA mirror of BeaconState's
   registry-axis columns, with exact (overflow-guarded) uint64 helpers
   and sparse write-back that preserves SSZ dirty-tracking.
 - :mod:`stages` — vectorized ``process_*`` implementations of the hot
   epoch sub-transitions across the production fork families (phase0 /
-  altair, with the bellatrix/capella quotient families and capella's
-  full-withdrawals sweep kept for the forks to come).
+  altair / bellatrix / capella, with capella's full-withdrawals sweep).
 - :mod:`attestations` — committee resolution in array form, plus the
   batched block-path ``process_attestations_batch`` installed by
   :func:`use_batched_attestations` (sequentially exact, incl.
@@ -68,7 +67,7 @@ STAGE_NAMES = (
 )
 
 # The forks the port builds (its specs/build.FORK_ORDER).
-SUPPORTED_FORKS = ("phase0", "altair")
+SUPPORTED_FORKS = ("phase0", "altair", "bellatrix", "capella")
 
 def _wrap_stage(spec, name: str):
     impl = getattr(stages, f"vectorized_{name}")

@@ -1,14 +1,20 @@
-"""States and blocks to drive the phase0 and altair state transitions with.
+"""States and blocks to drive the phase0, altair, bellatrix and capella
+state transitions with.
 
 The port's own copy of what it needs from the JAX package's test framework
-(``test_framework/{genesis,block,attestations,state,multi_operations}.py``):
-a genesis state (altair: with its participation columns, inactivity scores
-and both sync committees), the block of the next slot with every committee
-of the previous slot attesting (altair: and the sync committee's aggregate),
-and that block with its ``state_root`` filled in; participation columns
-drawn from a seed; and a runner that applies a block with its signature
-checks deferred into one batched flush (the vector generator's
-``--bls-defer`` pattern).
+(``test_framework/{genesis,block,attestations,state,multi_operations,
+execution_payload,bls_to_execution_changes}.py``): a genesis state (altair
+and later: with its participation columns, inactivity scores and both sync
+committees; bellatrix and later: an execution payload header, the default
+one or, ``post_merge``, that of an empty payload, as after the merge), a
+withdrawing set of exited validators on eth1 credentials drawn from a seed
+(capella), the block of the next slot with every committee of the previous
+slot attesting (altair and later: and the sync committee's aggregate;
+bellatrix and later: an empty execution payload, on capella carrying the
+expected withdrawals; capella: signed BLS-to-execution changes), and that
+block with its ``state_root`` filled in; participation columns drawn from a
+seed; and a runner that applies a block with its signature checks deferred
+into one batched flush (the vector generator's ``--bls-defer`` pattern).
 
 Keys follow the test framework's convention, privkey(i) = i + 1, so
 pubkey(i) = (i + 1) G1. ``pubkeys(n)`` derives them at registry scale by
@@ -18,11 +24,12 @@ batched affine additions on the host (a few microseconds a key, where
 states driven with ``bls.bls_active = False``.
 
 Signed blocks (``sign=True``) carry real signatures: the proposer's and
-the randao reveal, and each attestation signed once by the sum of its
-members' secret keys mod r, which gives the same bytes as ``Aggregate`` of
-the members' signatures (a signature is linear in the key) at the cost of
-one ``Sign``; the sync aggregate likewise, by the sum over its participating
-seats (a validator sampled into two seats counts twice, as it does in
+the randao reveal, each BLS-to-execution change by its validator's key,
+and each attestation signed once by the sum of its members' secret keys
+mod r, which gives the same bytes as ``Aggregate`` of the members'
+signatures (a signature is linear in the key) at the cost of one ``Sign``;
+the sync aggregate likewise, by the sum over its participating seats (a
+validator sampled into two seats counts twice, as it does in
 ``FastAggregateVerify``).
 """
 from __future__ import annotations
@@ -123,23 +130,30 @@ def _fork_versions(spec) -> tuple:
     spec's fork (ref: test/helpers/genesis.py:20-40)."""
     cfg = spec.config
     return {"phase0": (cfg.GENESIS_FORK_VERSION, cfg.GENESIS_FORK_VERSION),
-            "altair": (cfg.GENESIS_FORK_VERSION, cfg.ALTAIR_FORK_VERSION)}[spec.fork]
+            "altair": (cfg.GENESIS_FORK_VERSION, cfg.ALTAIR_FORK_VERSION),
+            "bellatrix": (cfg.ALTAIR_FORK_VERSION, cfg.BELLATRIX_FORK_VERSION),
+            "capella": (cfg.BELLATRIX_FORK_VERSION, cfg.CAPELLA_FORK_VERSION)}[spec.fork]
 
 
-def genesis(spec, n_validators: int, synthetic_pubkeys: bool = False, seed: int = 0):
+def genesis(spec, n_validators: int, synthetic_pubkeys: bool = False, seed: int = 0, post_merge: bool = False):
     """A genesis state of ``n_validators`` active validators at the maximum
     effective balance, laid out as the test framework's
     ``create_genesis_state`` lays it out (ref: test/helpers/genesis.py).
 
     phase0: no list root is left cached in the state, so the first
-    ``hash_tree_root`` of it hashes the whole registry. altair: empty
-    participation columns and inactivity scores, and both sync committees
-    from the spec's ``get_next_sync_committee`` (its keys aggregated by
-    ``eth_aggregate_pubkeys``, which needs real keys); it roots the
-    registry, as the committee's active set does."""
+    ``hash_tree_root`` of it hashes the whole registry. altair and later:
+    empty participation columns and inactivity scores, and both sync
+    committees from the spec's ``get_next_sync_committee`` (its keys
+    aggregated by ``eth_aggregate_pubkeys``, which needs real keys); it
+    roots the registry, as the committee's active set does. bellatrix and
+    later: the default execution payload header, or with ``post_merge``
+    the header of an empty payload on it, so that the merge is complete
+    (ref: execution_payload.py ``build_state_with_complete_transition``).
+    capella: every ``fully_withdrawn_epoch`` at FAR_FUTURE_EPOCH."""
     deposit_root = b"\x42" * 32
     eth1_block_hash = b"\xda" * 32
     balance = spec.MAX_EFFECTIVE_BALANCE
+    capella = {"fully_withdrawn_epoch": spec.FAR_FUTURE_EPOCH} if hasattr(spec, "Withdrawal") else {}
     validators = [
         spec.Validator(
             pubkey=pk,
@@ -149,6 +163,7 @@ def genesis(spec, n_validators: int, synthetic_pubkeys: bool = False, seed: int 
             exit_epoch=spec.FAR_FUTURE_EPOCH,
             withdrawable_epoch=spec.FAR_FUTURE_EPOCH,
             effective_balance=balance,
+            **capella,
         )
         for pk in _pubkeys(n_validators, synthetic_pubkeys, seed)
     ]
@@ -170,14 +185,126 @@ def genesis(spec, n_validators: int, synthetic_pubkeys: bool = False, seed: int 
     )
     # root a copy, so the state's own registry keeps no cached root
     state.genesis_validators_root = spec.hash_tree_root(state.validators.copy())
-    if spec.fork == "altair":
+    if hasattr(state, "inactivity_scores"):
         state.previous_epoch_participation = [0] * n_validators
         state.current_epoch_participation = [0] * n_validators
         state.inactivity_scores = [0] * n_validators
         state.current_sync_committee = spec.get_next_sync_committee(state)
         # the state has not changed, so the spec's second call gives the same committee
         state.next_sync_committee = state.current_sync_committee.copy()
+    if post_merge:
+        state.latest_execution_payload_header = execution_payload_header(spec, empty_execution_payload(spec, state))
     return state
+
+
+def draw_withdrawing(spec, state, seed: int, count: int, epoch: int) -> list:
+    """Make ``count`` validators, drawn from ``seed``, a withdrawal backlog
+    (capella): 0x01 (eth1-address) credentials, an exit at ``epoch`` and
+    withdrawable from it, so that capella's full-withdrawals sweep takes
+    them at the end of ``epoch`` (``withdrawable_epoch <= epoch``) and not
+    before. The spec's delay from exit to withdrawability
+    (``MIN_VALIDATOR_WITHDRAWABILITY_DELAY`` epochs) is not kept, so that a
+    chain from genesis reaches the sweep. Returns their indices, ascending."""
+    rng = np.random.default_rng([seed, 2])
+    indices = sorted(int(i) for i in rng.choice(len(state.validators), size=count, replace=False))
+    for i in indices:
+        validator = state.validators[i]
+        validator.withdrawal_credentials = (
+            bytes(spec.ETH1_ADDRESS_WITHDRAWAL_PREFIX) + b"\x00" * 11 + i.to_bytes(20, "little"))
+        validator.exit_epoch = epoch
+        validator.withdrawable_epoch = epoch
+    return indices
+
+
+def empty_execution_payload(spec, state):
+    """The payload of an empty execution block on the state's latest header,
+    at ``state.slot``; on capella carrying copies of the expected
+    withdrawals (ref: execution_payload.py ``build_empty_execution_payload``).
+    Copies, because this SSZ library assigns composites by reference and
+    ``process_withdrawals`` compares the payload with the queue."""
+    latest = state.latest_execution_payload_header
+    payload = spec.ExecutionPayload(
+        parent_hash=latest.block_hash,
+        fee_recipient=spec.ExecutionAddress(),
+        state_root=latest.state_root,  # no change to the execution state
+        receipts_root=b"no receipts here" + b"\x00" * 16,
+        logs_bloom=spec.ByteVector[spec.BYTES_PER_LOGS_BLOOM](),
+        prev_randao=spec.get_randao_mix(state, spec.get_current_epoch(state)),
+        block_number=latest.block_number + 1,
+        gas_limit=latest.gas_limit,
+        gas_used=0,
+        timestamp=spec.compute_timestamp_at_slot(state, state.slot),
+        extra_data=spec.ByteList[spec.MAX_EXTRA_DATA_BYTES](),
+        base_fee_per_gas=latest.base_fee_per_gas,
+        transactions=spec.List[spec.Transaction, spec.MAX_TRANSACTIONS_PER_PAYLOAD](),
+    )
+    if hasattr(payload, "withdrawals"):
+        payload.withdrawals = [w.copy() for w in spec.get_expected_withdrawals(state)]
+    payload.block_hash = el_block_hash(spec, payload)
+    return payload
+
+
+def el_block_hash(spec, payload):
+    """The mock execution-layer block hash of the test framework (no RLP or
+    keccak in scope): the hash of the payload's root and a tag."""
+    return spec.Hash32(spec.hash(payload.hash_tree_root() + b"FAKE RLP HASH"))
+
+
+def execution_payload_header(spec, payload):
+    """The ``ExecutionPayloadHeader`` that ``process_execution_payload``
+    keeps of ``payload``."""
+    header = spec.ExecutionPayloadHeader(
+        parent_hash=payload.parent_hash,
+        fee_recipient=payload.fee_recipient,
+        state_root=payload.state_root,
+        receipts_root=payload.receipts_root,
+        logs_bloom=payload.logs_bloom,
+        prev_randao=payload.prev_randao,
+        block_number=payload.block_number,
+        gas_limit=payload.gas_limit,
+        gas_used=payload.gas_used,
+        timestamp=payload.timestamp,
+        extra_data=payload.extra_data,
+        base_fee_per_gas=payload.base_fee_per_gas,
+        block_hash=payload.block_hash,
+        transactions_root=spec.hash_tree_root(payload.transactions),
+    )
+    if hasattr(header, "withdrawals_root"):
+        header.withdrawals_root = spec.hash_tree_root(payload.withdrawals)
+    return header
+
+
+def address_change(spec, state, index: int, sign: bool = False):
+    """The ``SignedBLSToExecutionChange`` of validator ``index`` (capella),
+    whose withdrawal credentials are still those of its own key (0x00 and
+    the hash of ``pubkey(index)``): to the address 0x42..42, signed with
+    privkey index + 1 (ref: bls_to_execution_changes.py
+    ``get_signed_address_change``). With ``sign`` a real signature;
+    otherwise ``bls.Sign``'s, zeros while BLS is off."""
+    change = spec.BLSToExecutionChange(
+        validator_index=index, from_bls_pubkey=state.validators[index].pubkey, to_execution_address=b"\x42" * 20)
+    root = spec.compute_signing_root(change, spec.get_domain(state, spec.DOMAIN_BLS_TO_EXECUTION_CHANGE))
+    signature = ciphersuite.Sign(index + 1, root) if sign else bls.Sign(index + 1, root)
+    return spec.SignedBLSToExecutionChange(message=change, signature=signature)
+
+
+def address_changers(spec, state, seed: int, count: int) -> list:
+    """``count`` distinct validators, drawn from ``seed`` and the slot,
+    whose credentials are still BLS ones (0x00): those that may send a
+    BLS-to-execution change. Draws and checks a validator at a time, not a
+    pass over the registry."""
+    rng = np.random.default_rng([seed, int(state.slot), 3])
+    prefix = bytes(spec.BLS_WITHDRAWAL_PREFIX)
+    chosen: list = []
+    n = len(state.validators)
+    for _ in range(64 * count + 64):
+        if len(chosen) == count:
+            break
+        i = int(rng.integers(n))
+        if i not in chosen and bytes(state.validators[i].withdrawal_credentials)[:1] == prefix:
+            chosen.append(i)
+    assert len(chosen) == count, f"found {len(chosen)} of {count} validators on BLS credentials"
+    return chosen
 
 
 def draw_participation(spec, state, seed: int, rate: float = 0.95) -> None:
@@ -256,11 +383,15 @@ def attestations_for_slot(spec, state, slot: int, split: bool = False, sign: boo
     return out
 
 
-def next_block(spec, state, attest: bool = True, split: bool = False, sign: bool = False, seed: int = 0):
+def next_block(spec, state, attest: bool = True, split: bool = False, sign: bool = False, seed: int = 0,
+               changes=None):
     """Advance ``state`` to the next slot and apply a block there that
     carries the previous slot's attestations (up to ``MAX_ATTESTATIONS``;
-    ``split``: two per committee) and, on altair, the sync aggregate of
-    ``sync_aggregate_for_slot`` (its bits from ``seed``). Returns the
+    ``split``: two per committee) and, on altair and later, the sync
+    aggregate of ``sync_aggregate_for_slot`` (its bits from ``seed``); on
+    bellatrix and later ``empty_execution_payload``; on capella ``changes``
+    BLS-to-execution changes (default ``MAX_BLS_TO_EXECUTION_CHANGES``) of
+    the validators ``address_changers`` draws from ``seed``. Returns the
     ``SignedBeaconBlock``, ``state_root`` filled in; ``state`` ends as its
     post-state.
 
@@ -287,6 +418,12 @@ def next_block(spec, state, attest: bool = True, split: bool = False, sign: bool
             block.body.attestations.append(att)
     if hasattr(block.body, "sync_aggregate"):
         block.body.sync_aggregate = sync_aggregate_for_slot(spec, state, seed, sign)
+    if hasattr(block.body, "execution_payload"):
+        block.body.execution_payload = empty_execution_payload(spec, state)
+    if hasattr(block.body, "bls_to_execution_changes"):
+        count = spec.MAX_BLS_TO_EXECUTION_CHANGES if changes is None else changes
+        for i in address_changers(spec, state, seed, count):
+            block.body.bls_to_execution_changes.append(address_change(spec, state, i, sign))
     with _checks_off():
         spec.process_block(state, block)
     block.state_root = spec.hash_tree_root(state)
@@ -324,6 +461,15 @@ def tampered_sync_copy(spec, post_state, signed_block, seed: int, message: bytes
     assert header.slot == block.slot
     block.body.sync_aggregate = sync_aggregate_for_slot(spec, post_state, seed, message=message)
     assert block.body.sync_aggregate.sync_committee_bits == signed_block.message.body.sync_aggregate.sync_committee_bits
+    return _resealed(spec, post_state, signed_block, block)
+
+
+def tampered_change_copy(spec, post_state, signed_block, index: int, message: bytes = b"\x42" * 32):
+    """The same for the block's BLS-to-execution change ``index`` (capella):
+    signed by its validator's key over ``message``."""
+    block = signed_block.message.copy()
+    change = block.body.bls_to_execution_changes[index]
+    change.signature = ciphersuite.Sign(int(change.message.validator_index) + 1, message)
     return _resealed(spec, post_state, signed_block, block)
 
 

@@ -7,8 +7,9 @@ F *into one namespace*, so later definitions override earlier ones and all
 references late-bind to the final namespace — the same semantics the
 reference gets by emitting one flat module per (fork, preset).
 
-This package carries phase0 and altair; later forks come with later
-slices. Built modules register as ``consensus_specs_tpu_torch.specs.<fork>_<preset>``
+This package carries the production forks phase0, altair, bellatrix and
+capella; the R&D forks that branch off bellatrix come with later slices.
+Built modules register as ``consensus_specs_tpu_torch.specs.<fork>_<preset>``
 so they never collide in ``sys.modules`` with the JAX package's modules of
 the same fork and preset.
 """
@@ -21,7 +22,7 @@ from typing import Any, Dict, Optional, Tuple
 
 from ..config import config_for, preset_for
 
-FORK_ORDER = ["phase0", "altair"]
+FORK_ORDER = ["phase0", "altair", "bellatrix", "capella"]
 
 _SOURCE_DIR = Path(__file__).resolve().parent
 _cache: Dict[Tuple, types.ModuleType] = {}

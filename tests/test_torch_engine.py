@@ -24,7 +24,7 @@ from consensus_specs_tpu_torch.engine import backend, crosscheck, ops_torch, sta
 from consensus_specs_tpu_torch.engine import delta_checks as dc
 from consensus_specs_tpu_torch.specs import build_spec as tbuild
 
-FORKS = ("phase0", "altair")
+FORKS = ("phase0", "altair", "bellatrix", "capella")
 U64_MAX, I64_MAX = 2**64 - 1, 2**63 - 1
 
 
@@ -108,11 +108,25 @@ def test_every_stage_matches_the_jax_engine_and_the_interpreted_spec(fork, leak,
             getattr(stages, f"vectorized_{name}")(tspec, port_torch)
             getattr(jstages, f"vectorized_{name}")(jspec, jax_engine)
             want = _root(interpreted)
+            if name == "process_full_withdrawals":  # the sweep withdraws the rows crosscheck made withdrawable
+                assert len(interpreted.withdrawals_queue) > len(tstate.withdrawals_queue), seed
             assert _root(port_numpy) == want, (name, seed)
             assert _root(port_torch) == want, (name, seed)
             assert _root(jax_engine) == want, (name, seed)
-    # altair's rewards go through the torch backend's flag deltas, 3 flags a state
-    assert len(calls) == (6 if fork == "altair" else 0)
+    # every fork after phase0 takes the flag deltas through the torch backend, 3 flags a state
+    assert len(calls) == (0 if fork == "phase0" else 6)
+
+
+@pytest.mark.parametrize("fork", FORKS[1:])
+def test_penalty_families_follow_the_fork(fork):
+    """altair's inactivity quotient and slashing multiplier on altair,
+    bellatrix's on bellatrix and capella, in both packages' engines."""
+    jspec, tspec = jbuild(fork, "minimal"), tbuild(fork, "minimal")
+    family = "ALTAIR" if fork == "altair" else "BELLATRIX"
+    want = (int(getattr(tspec, f"INACTIVITY_PENALTY_QUOTIENT_{family}")),
+            int(getattr(tspec, f"PROPORTIONAL_SLASHING_MULTIPLIER_{family}")))
+    assert (stages._inactivity_quotient(tspec), stages._slashings_multiplier(tspec)) == want
+    assert (jstages._inactivity_quotient(jspec), jstages._slashings_multiplier(jspec)) == want
 
 
 @pytest.mark.parametrize("leak", [False, True], ids=["finalizing", "leaking"])
@@ -187,7 +201,7 @@ def test_install_is_idempotent_reversible_and_reaches_future_builds():
     engine.use_direct_attestations()
     assert spec.process_slashings is original and not any(engine.stage_status(fresh).values())
     assert not getattr(spec.process_operations, "engine_batched_atts", False)
-    assert engine.SUPPORTED_FORKS == ("phase0", "altair")
+    assert engine.SUPPORTED_FORKS == ("phase0", "altair", "bellatrix", "capella")
 
 
 def test_torch_backend_needs_the_card_unless_asked_for_the_cpu(monkeypatch):

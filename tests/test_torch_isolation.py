@@ -57,6 +57,11 @@ def test_importing_the_port_loads_neither():
         "spec = build_spec('altair', 'minimal')\n"
         "assert spec.__name__ == 'consensus_specs_tpu_torch.specs.altair_minimal', spec.__name__\n"
         "assert all(engine.stage_status(spec).values()) and spec.process_operations.engine_batched_atts\n"
+        "for fork in ('bellatrix', 'capella'):\n"
+        "    spec = build_spec(fork, 'minimal')\n"
+        "    assert spec.__name__ == f'consensus_specs_tpu_torch.specs.{fork}_minimal', spec.__name__\n"
+        "    assert all(engine.stage_status(spec).values()) and spec.process_operations.engine_batched_atts\n"
+        "assert engine.stage_status(spec)['process_full_withdrawals']\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in {'jax', 'jaxlib', 'consensus_specs_tpu'})\n"
         "assert not bad, bad\n"
         "assert sha256_cuda._lib is None  # nothing built at import\n"
