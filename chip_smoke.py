@@ -1,6 +1,6 @@
 """Drive the PyTorch/CUDA port on one CUDA card and check it end to end.
 
-    python3 chip_smoke.py [--seed 0] [--validators 524288] [--slots 2] [--altair-blocks 2]
+    python3 chip_smoke.py [--seed 0] [--validators 524288] [--slots 2] [--altair-blocks 1]
 
 Phases, each raising on any mismatch:
 
@@ -59,13 +59,14 @@ Phases, each raising on any mismatch:
    that row, the host oracle must agree, and the transition must raise on
    replay.
 6. altair: a mainnet-preset altair chain of ``--validators`` validators with
-   the same keys: genesis with both sync committees, then 94 empty slots
+   the same keys: genesis with both sync committees, then 95 empty slots
    through the epoch engine (use_vectorized_epoch, use_batched_attestations,
    its torch backend: K10 flag_deltas on the card) and the device hasher,
    across epochs 0 -> 1 and 1 -> 2; participation drawn from the seed (~95%
    of validators with each flag); then ``--altair-blocks`` signed blocks
-   from slot 95, each with 128 attestations in halves and a sync aggregate
-   with ~1/16 of its 512 seats off. The host run builds them with the
+   (1: the boundary block 96 alone; 2 or more: from slot 95), each with
+   128 attestations in halves and a sync aggregate with ~1/16 of its 512
+   seats off. The host run builds them with the
    numpy engine, the host hasher and the reference BLS; the device run
    applies them with K10, the device hasher and one deferred flush a block
    on the card (two calls: the 128-key bucket and the sync aggregate's
@@ -90,9 +91,18 @@ Phases, each raising on any mismatch:
    together must run both ``SYNC_CALL_LAUNCHES`` variants. K10 is then held
    bit-exact against its plain version on altair's epoch columns and
    seeded edge rows, and against Python integers past 2^63, and timed.
-   After it the K3-K9 checks run again at every size the phase0, altair
-   and capella flushes launched.
-8. fq timing: the K3/K4 kernels (lane-group and one-thread) timed in
+8. generators: the vector factory (``generators.gen_runner.run_generator``)
+   at capella mainnet on the card: the operations runner's attestation
+   handler (20 cases with ``--bls-defer``: one flush on K3-K9, its pubkeys
+   decoded anew) and ssz_static (mode_random, count 2: every container,
+   BeaconState among them; roots on K1), then the same providers on the
+   host oracle (the reference BLS, hashlib). Every file byte-identical and
+   the journals' entries equal; no case failed or retried; the
+   invalid-signature rows False on the card as on the host and exactly
+   those cases replayed; K1 and each of K3-K9 launched. After it the K3-K9
+   checks run again at every size the phase0, altair, capella and
+   generator flushes launched.
+9. fq timing: the K3/K4 kernels (lane-group and one-thread) timed in
    turns in one profiler window per size, at 4,608 and 16,384 elements and
    at each kernel's two most frequent sizes of that histogram, beside the
    bound and the launch floor (the probe's device time). K5/K6 at every
@@ -1242,13 +1252,20 @@ def tampered_phase(report: dict, spec, states: tuple, seed: int) -> None:
           f"host oracle agrees, replay raised {raised} ({seconds:.3f}s)", flush=True)
 
 
-# The altair and capella chains: 94 empty slots from genesis cross the
-# epoch boundaries 0 -> 1 and 1 -> 2 through the engine; the blocks at 95,
-# 96, ... then carry attestations and a sync aggregate (capella: and an
-# execution payload and BLS-to-execution changes), and the one at 96 runs
-# epoch 2 -> 3, where justification and rewards both run (K10 three times,
-# one launch a flag) and, on capella, the full-withdrawals sweep.
-CHAIN_ADVANCE_SLOT = 3 * 32 - 2
+# The altair and capella chains: empty slots from genesis cross the epoch
+# boundaries 0 -> 1 and 1 -> 2 through the engine; the signed blocks then
+# carry attestations and a sync aggregate (capella: and an execution
+# payload and BLS-to-execution changes), and the one at the boundary slot
+# 96 runs epoch 2 -> 3, where justification and rewards both run (K10
+# three times, one launch a flag) and, on capella, the full-withdrawals
+# sweep. One block is the boundary block alone (altair's, after 95 empty
+# slots); two or more start at 95 (capella's 95, 96 and 97, after 94).
+BOUNDARY_SLOT = 3 * 32
+
+
+def chain_advance_slot(n_blocks: int) -> int:
+    """The last empty slot before a chain's first signed block."""
+    return BOUNDARY_SLOT - min(n_blocks, 2)
 # capella's blocks: 95, the boundary block 96 (its epoch processing sweeps
 # the backlog, its payload pays the first 16 withdrawals) and 97 (the next 16)
 CAPELLA_BLOCKS = 3
@@ -1332,9 +1349,10 @@ def chain_phase(report: dict, fork: str, seed: int, validators: int, n_blocks: i
     """The altair or capella chain at ``validators`` validators with real
     keys: genesis (both sync committees; capella: post-merge, with the
     withdrawal backlog ``harness.draw_withdrawing`` draws from the seed),
-    94 empty slots through the engine on the torch backend (K10) and the
+    empty slots through the engine on the torch backend (K10) and the
     device hasher, participation drawn from the seed, then ``n_blocks``
-    signed blocks at slots 95, 96, ... (128 attestations in halves and a
+    signed blocks (``chain_advance_slot``: the boundary block 96 alone, or
+    95, 96, ...; 128 attestations in halves and a
     sync aggregate of ~1/16 seats off; capella: an empty execution payload
     with the expected withdrawals and 16 BLS-to-execution changes), and the
     last of them again with its sync aggregate (capella: one change) over
@@ -1347,6 +1365,7 @@ def chain_phase(report: dict, fork: str, seed: int, validators: int, n_blocks: i
     variant."""
     spec = build_spec(fork, "mainnet")
     capella = fork == "capella"
+    advance_slot = chain_advance_slot(n_blocks)
     engine.use_vectorized_epoch()
     engine.use_batched_attestations()
     engine.use_backend("torch")
@@ -1361,7 +1380,7 @@ def chain_phase(report: dict, fork: str, seed: int, validators: int, n_blocks: i
     ops_torch.reset_counters()
     with Timed(spec, "process_epoch") as epochs:
         t0 = time.perf_counter()
-        spec.process_slots(state, CHAIN_ADVANCE_SLOT)
+        spec.process_slots(state, advance_slot)
         torch.cuda.synchronize()
         advance_s = time.perf_counter() - t0
     advance_k10 = dict(ops_torch.sizes["flag_deltas"])
@@ -1370,7 +1389,7 @@ def chain_phase(report: dict, fork: str, seed: int, validators: int, n_blocks: i
     harness.draw_participation(spec, state, seed)
     host_state = state.copy()
     print(f"[{fork}] genesis of {validators} validators{f' ({len(withdrawing)} withdrawing)' if capella else ''} "
-          f"{genesis_s:.1f}s; {CHAIN_ADVANCE_SLOT} empty slots {advance_s:.1f}s (epoch processing "
+          f"{genesis_s:.1f}s; {advance_slot} empty slots {advance_s:.1f}s (epoch processing "
           f"{epochs.seconds['process_epoch']:.1f}s, K10 {advance_k10})", flush=True)
 
     # the host run: numpy engine, host hasher, reference BLS; builds the blocks
@@ -1535,7 +1554,7 @@ def chain_phase(report: dict, fork: str, seed: int, validators: int, n_blocks: i
     print(f"[{fork}] epoch 2 -> 3 by stage, seconds on the card (K10, device hasher) / numpy engine (host hasher): "
           f"{ {n.replace('process_', ''): (round(dev_epoch.seconds[n], 3), round(host_epoch.seconds[n], 3)) for n in stage_names} }",
           flush=True)
-    print(f"[{fork}] {n_blocks} signed blocks from slot {CHAIN_ADVANCE_SLOT + 1}, every root the host's; epoch 2 -> 3 "
+    print(f"[{fork}] {n_blocks} signed blocks from slot {advance_slot + 1}, every root the host's; epoch 2 -> 3 "
           f"on the card {b['device_epoch_s']:.2f}s (rewards {b['device_rewards_s']:.2f}s, K10 {k10}) against the numpy "
           f"engine's {b['host_epoch_s']:.2f}s (rewards {b['host_rewards_s']:.2f}s); "
           f"{report[fork]['checks_per_s']:.2f} checks/s; K1/K2 launches {sha_launches}; the tampered {what} alone "
@@ -1612,6 +1631,115 @@ def phase_flag_deltas(report: dict, card: "Card", seed: int, epoch_calls: list) 
           f"one flag_deltas call with its copies {call_ms:.3f} ms wall", flush=True)
 
 
+GEN_FORK, GEN_PRESET = "capella", "mainnet"
+GEN_SSZ_SEED = 8  # the ssz_static runner's seed of its mainnet mode_random setting
+GEN_SSZ_COUNT = 2
+GEN_CASES = "consensus_specs_tpu_torch.cases.operations_attestation"
+
+
+def gen_tree(root: Path) -> dict:
+    """Every file the generator wrote under ``root`` (its journal included)."""
+    return {str(p.relative_to(root)): p.read_bytes() for p in sorted(root.rglob("*")) if p.is_file()}
+
+
+def generators_phase(report: dict) -> tuple:
+    """The vector factory on the card: the operations runner's attestation
+    handler (20 cases, ``--bls-defer``: one flush on K3-K9) and ssz_static
+    (mode_random, count 2: every container, BeaconState among them) at
+    capella mainnet, through ``run_generator`` with the torch BLS backend
+    and the device hasher on the card (K1, and K2 where the shuffle's small
+    hashes reach it), into one directory; then the same providers on the
+    host oracle (the reference BLS, hashlib) into another. Every file must
+    be byte-identical and the journals' entries equal; no case may fail or
+    be retried (the supervisor's event record); the invalid-signature
+    cases' rows must be False on the card, as on the host, and exactly those
+    cases replayed; K1 and each of K3-K9 must launch in the card run. A
+    generator run starts with no decoded pubkeys, so its flush decodes its
+    keys (K7). Returns the card run's launches and its K3-K9 launch sizes."""
+    import shutil
+
+    from consensus_specs_tpu_torch.debug.random_value import RandomizationMode
+    from consensus_specs_tpu_torch.generators import gen_from_tests
+    from consensus_specs_tpu_torch.generators.gen_runner import run_generator
+    from consensus_specs_tpu_torch.generators.runners import ssz_static
+    from consensus_specs_tpu_torch.resilience import CaseJournal, events
+    from consensus_specs_tpu_torch.test_framework import context
+
+    out = ROOT / "build" / "generators"
+    shutil.rmtree(out, ignore_errors=True)
+    spec = build_spec(GEN_FORK, GEN_PRESET)
+
+    def run(where: str, flags: list) -> dict:
+        # each run computes its own genesis states, shuffles and active sets
+        context._state_cache.clear()
+        spec._shuffle_cache.clear()
+        spec._active_indices_cache.clear()
+        attestation = gen_from_tests.get_create_provider_fn("operations")(
+            GEN_FORK, GEN_PRESET, "attestation", GEN_CASES)
+        ssz = ssz_static.create_provider(GEN_FORK, GEN_PRESET, GEN_SSZ_SEED, RandomizationMode.mode_random,
+                                         False, GEN_SSZ_COUNT)
+        events(clear=True)
+        log: list = []
+        t0 = time.perf_counter()
+        ops = run_generator("operations", [attestation], ["-o", str(out / where), "--bls-defer", *flags],
+                            flush_log=log)
+        t1 = time.perf_counter()
+        ssz_counts = run_generator("ssz_static", [ssz], ["-o", str(out / where), *flags])
+        t2 = time.perf_counter()
+        require(len(log) == 1, f"the {where} run flushed {len(log)} times, not once")
+        res = {
+            "operations": ops, "ssz_static": ssz_counts, "operations_s": t1 - t0, "ssz_static_s": t2 - t1,
+            "flush": {k: v for k, v in log[0].items() if k != "rows"},
+            "false_rows": sorted(c for c, rows in log[0]["rows"].items() if not all(rows)),
+            "retried": [e for e in events() if e["event"] == "retry"],
+        }
+        for name in ("operations", "ssz_static"):
+            c = res[name]
+            require(c["failed"] == 0, f"the {where} run failed {c['failed']} {name} cases")
+            res[f"{name}_cases_per_s"] = c["generated"] / res[f"{name}_s"]
+        require(res["retried"] == [], f"the {where} run retried: {res['retried']}")
+        print(f"[generators] {where} run: operations/attestation {ops['generated']} cases in "
+              f"{res['operations_s']:.2f}s ({res['operations_cases_per_s']:.3f} cases/s; the flush of "
+              f"{log[0]['checks']} checks {log[0]['seconds']:.3f}s wall), ssz_static {ssz_counts['generated']} cases "
+              f"in {res['ssz_static_s']:.2f}s ({res['ssz_static_cases_per_s']:.3f} cases/s); invalid-signature "
+              f"rows False in {res['false_rows']}, replayed {res['flush']['replayed']}", flush=True)
+        return res
+
+    bls_torch.clear_caches()
+    dev.reset_counters()
+    fq_cuda.reset_counters()
+    before_sizes = {k: dict(fq_cuda.sizes[k]) for k in fq_cuda.KERNELS}
+    card_run = run("card", [])
+    torch.cuda.synchronize()
+    sha_launches = dev.counters()["launches"]
+    launches = {k: fq_cuda.launches[k] for k in fq_cuda.KERNELS}
+    sizes = {k: {n: c - before_sizes[k].get(n, 0) for n, c in fq_cuda.sizes[k].items()
+                 if c != before_sizes[k].get(n, 0)} for k in fq_cuda.KERNELS}
+    host_run = run("host", ["--device", "host"])
+    card, host = gen_tree(out / "card"), gen_tree(out / "host")
+    require(card.keys() == host.keys(), f"the card wrote {len(card)} files, the host {len(host)}")
+    differ = [name for name in card if card[name] != host[name]]
+    require(not differ, f"{len(differ)} files differ between the card and the host, e.g. {differ[:3]}")
+    require(CaseJournal(out / "card").entries() == CaseJournal(out / "host").entries(),
+            "the journals' entries differ")
+    require(card_run["false_rows"] and card_run["false_rows"] == host_run["false_rows"],
+            f"invalid-signature rows: card {card_run['false_rows']}, host {host_run['false_rows']}")
+    require(sorted(card_run["flush"]["replayed"]) == card_run["false_rows"],
+            f"replayed {card_run['flush']['replayed']}, rows False in {card_run['false_rows']}")
+    require(sha_launches["sha256_blocks"] > 0, "K1 sha256_blocks was not launched by the generator run")
+    missing = [k for k in fq_cuda.KERNELS if launches[k] == 0]
+    require(not missing, f"{missing} not launched by the generator run's flush")
+    n_bytes = sum(len(b) for b in card.values())
+    report["generators"] = {
+        "card": card_run, "host": host_run, "files": len(card), "bytes": n_bytes,
+        "launches": {**sha_launches, **launches}, "sizes": sizes,
+    }
+    print(f"[generators] {len(card)} files ({n_bytes} bytes) byte-identical between the card and the host oracle, "
+          f"journals equal; 0 failed, 0 retried; launches K1/K2 {sha_launches}, K3-K9 {launches}", flush=True)
+    shutil.rmtree(out, ignore_errors=True)
+    return {"launches": {**sha_launches, **launches}}, sizes
+
+
 def kernel_records(report: dict, main_counts: tuple) -> list:
     """The kernels line: each kernel of the main path with its launches
     there (summed over ``main_counts``, each a phase's ``{"launches": ...}``),
@@ -1674,7 +1802,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--validators", type=int, default=DEFAULT_VALIDATORS)
     ap.add_argument("--slots", type=int, default=2)  # 2 + 2 phase0 slots leave the altair phase its time
-    ap.add_argument("--altair-blocks", type=int, default=2)  # 95 and the boundary block 96
+    ap.add_argument("--altair-blocks", type=int, default=1)  # the boundary block 96 alone
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1742,11 +1870,14 @@ def main() -> int:
     if args.validators == DEFAULT_VALIDATORS:  # both pinned sync calls ran on the card
         require(set(variants + capella_variants) == set(SYNC_CALL_LAUNCHES),
                 f"the sync calls ran {variants} (altair) and {capella_variants} (capella), not both variants")
+    generator_counts, generator_sizes = generators_phase(report)
+    done("generators")
     phase_flag_deltas(report, card, args.seed, k10_calls)
     done("flag_deltas")
     # the checks at every size a flush launched (the phase0, altair and
     # capella flushes) that the kernel checks above did not cover
-    sizes = {k: set(altair_hist[k]) | set(capella_hist[k]) | set(hist[k]) for k in fq_cuda.KERNELS}
+    sizes = {k: set(altair_hist[k]) | set(capella_hist[k]) | set(hist[k]) | set(generator_sizes[k])
+             for k in fq_cuda.KERNELS}
     label = "every other size a flush launched"
     phase_fq_kernels(report, args.seed, sorted((sizes["fq_mul"] | sizes["fq_addsub"]) - set(FQ_SIZES)), label)
     phase_pow_kernels(report, args.seed, {name: sorted(sizes[name] - set(POW_SIZES)) for name in POW}, label)
@@ -1761,7 +1892,8 @@ def main() -> int:
     report["total_s"] = time.perf_counter() - t_start
     print(f"[phases] seconds: { {k: round(v, 1) for k, v in report['phase_s'].items()} }", flush=True)
 
-    records = kernel_records(report, (root_counts, transition_counts, bls_counts, altair_counts, capella_counts))
+    records = kernel_records(report, (root_counts, transition_counts, bls_counts, altair_counts, capella_counts,
+                                      generator_counts))
     print("[report]", json.dumps(report, default=str))
     print(json.dumps({
         "kernels": records,
@@ -1778,6 +1910,9 @@ def main() -> int:
         "capella_checks_per_s": report["capella"]["checks_per_s"],
         "capella_epoch_s": report["capella"]["boundary"]["device_epoch_s"],
         "capella_epoch_numpy_s": report["capella"]["boundary"]["host_epoch_s"],
+        "generator_card_s": report["generators"]["card"]["operations_s"] + report["generators"]["card"]["ssz_static_s"],
+        "generator_host_s": report["generators"]["host"]["operations_s"] + report["generators"]["host"]["ssz_static_s"],
+        "generator_flush_s": report["generators"]["card"]["flush"]["seconds"],
         "total_s": report["total_s"],
     }))
     print(report["env"]["card"])

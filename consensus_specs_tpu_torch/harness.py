@@ -3,7 +3,8 @@ state transitions with.
 
 The port's own copy of what it needs from the JAX package's test framework
 (``test_framework/{genesis,block,attestations,state,multi_operations,
-execution_payload,bls_to_execution_changes}.py``): a genesis state (altair
+bls_to_execution_changes}.py``; its execution payloads come from the
+port's ``test_framework/execution_payload.py``): a genesis state (altair
 and later: with its participation columns, inactivity scores and both sync
 committees; bellatrix and later: an execution payload header, the default
 one or, ``post_merge``, that of an empty payload, as after the merge), a
@@ -44,6 +45,7 @@ from .crypto import bls
 from .crypto.bls import ciphersuite
 from .crypto.bls.curve import G1_X, G1_Y
 from .crypto.bls.fields import P, R
+from .test_framework.execution_payload import build_empty_execution_payload, get_execution_payload_header
 
 KEY_DIR = Path(__file__).resolve().parents[1] / "build" / "keys"
 _TABLE = 1024  # keys per run of the batched additions
@@ -193,7 +195,8 @@ def genesis(spec, n_validators: int, synthetic_pubkeys: bool = False, seed: int 
         # the state has not changed, so the spec's second call gives the same committee
         state.next_sync_committee = state.current_sync_committee.copy()
     if post_merge:
-        state.latest_execution_payload_header = execution_payload_header(spec, empty_execution_payload(spec, state))
+        state.latest_execution_payload_header = get_execution_payload_header(
+            spec, build_empty_execution_payload(spec, state))
     return state
 
 
@@ -214,64 +217,6 @@ def draw_withdrawing(spec, state, seed: int, count: int, epoch: int) -> list:
         validator.exit_epoch = epoch
         validator.withdrawable_epoch = epoch
     return indices
-
-
-def empty_execution_payload(spec, state):
-    """The payload of an empty execution block on the state's latest header,
-    at ``state.slot``; on capella carrying copies of the expected
-    withdrawals (ref: execution_payload.py ``build_empty_execution_payload``).
-    Copies, because this SSZ library assigns composites by reference and
-    ``process_withdrawals`` compares the payload with the queue."""
-    latest = state.latest_execution_payload_header
-    payload = spec.ExecutionPayload(
-        parent_hash=latest.block_hash,
-        fee_recipient=spec.ExecutionAddress(),
-        state_root=latest.state_root,  # no change to the execution state
-        receipts_root=b"no receipts here" + b"\x00" * 16,
-        logs_bloom=spec.ByteVector[spec.BYTES_PER_LOGS_BLOOM](),
-        prev_randao=spec.get_randao_mix(state, spec.get_current_epoch(state)),
-        block_number=latest.block_number + 1,
-        gas_limit=latest.gas_limit,
-        gas_used=0,
-        timestamp=spec.compute_timestamp_at_slot(state, state.slot),
-        extra_data=spec.ByteList[spec.MAX_EXTRA_DATA_BYTES](),
-        base_fee_per_gas=latest.base_fee_per_gas,
-        transactions=spec.List[spec.Transaction, spec.MAX_TRANSACTIONS_PER_PAYLOAD](),
-    )
-    if hasattr(payload, "withdrawals"):
-        payload.withdrawals = [w.copy() for w in spec.get_expected_withdrawals(state)]
-    payload.block_hash = el_block_hash(spec, payload)
-    return payload
-
-
-def el_block_hash(spec, payload):
-    """The mock execution-layer block hash of the test framework (no RLP or
-    keccak in scope): the hash of the payload's root and a tag."""
-    return spec.Hash32(spec.hash(payload.hash_tree_root() + b"FAKE RLP HASH"))
-
-
-def execution_payload_header(spec, payload):
-    """The ``ExecutionPayloadHeader`` that ``process_execution_payload``
-    keeps of ``payload``."""
-    header = spec.ExecutionPayloadHeader(
-        parent_hash=payload.parent_hash,
-        fee_recipient=payload.fee_recipient,
-        state_root=payload.state_root,
-        receipts_root=payload.receipts_root,
-        logs_bloom=payload.logs_bloom,
-        prev_randao=payload.prev_randao,
-        block_number=payload.block_number,
-        gas_limit=payload.gas_limit,
-        gas_used=payload.gas_used,
-        timestamp=payload.timestamp,
-        extra_data=payload.extra_data,
-        base_fee_per_gas=payload.base_fee_per_gas,
-        block_hash=payload.block_hash,
-        transactions_root=spec.hash_tree_root(payload.transactions),
-    )
-    if hasattr(header, "withdrawals_root"):
-        header.withdrawals_root = spec.hash_tree_root(payload.withdrawals)
-    return header
 
 
 def address_change(spec, state, index: int, sign: bool = False):
@@ -389,7 +334,7 @@ def next_block(spec, state, attest: bool = True, split: bool = False, sign: bool
     carries the previous slot's attestations (up to ``MAX_ATTESTATIONS``;
     ``split``: two per committee) and, on altair and later, the sync
     aggregate of ``sync_aggregate_for_slot`` (its bits from ``seed``); on
-    bellatrix and later ``empty_execution_payload``; on capella ``changes``
+    bellatrix and later ``build_empty_execution_payload``; on capella ``changes``
     BLS-to-execution changes (default ``MAX_BLS_TO_EXECUTION_CHANGES``) of
     the validators ``address_changers`` draws from ``seed``. Returns the
     ``SignedBeaconBlock``, ``state_root`` filled in; ``state`` ends as its
@@ -419,7 +364,7 @@ def next_block(spec, state, attest: bool = True, split: bool = False, sign: bool
     if hasattr(block.body, "sync_aggregate"):
         block.body.sync_aggregate = sync_aggregate_for_slot(spec, state, seed, sign)
     if hasattr(block.body, "execution_payload"):
-        block.body.execution_payload = empty_execution_payload(spec, state)
+        block.body.execution_payload = build_empty_execution_payload(spec, state)
     if hasattr(block.body, "bls_to_execution_changes"):
         count = spec.MAX_BLS_TO_EXECUTION_CHANGES if changes is None else changes
         for i in address_changers(spec, state, seed, count):

@@ -56,6 +56,12 @@ def cached_modules():
     return list(_cache.values())
 
 
+def available_forks():
+    """Production forks whose spec source exists on disk, in dependency
+    order: the forks the generators iterate."""
+    return [f for f in FORK_ORDER if (_SOURCE_DIR / f"{f}.py").exists()]
+
+
 def _fork_chain(fork: str):
     if fork not in FORK_ORDER:
         raise ValueError(f"unknown fork {fork!r} (have {FORK_ORDER})")

@@ -22,6 +22,7 @@ from consensus_specs_tpu_torch import engine, harness
 from consensus_specs_tpu_torch.crypto import bls as tbls
 from consensus_specs_tpu_torch.ops import bls_torch
 from consensus_specs_tpu_torch.specs import build_spec as tbuild
+from consensus_specs_tpu_torch.test_framework.execution_payload import build_empty_execution_payload
 
 WITHDRAWING = 4  # validators whose full withdrawals the block's payload carries
 
@@ -159,7 +160,7 @@ def test_a_payload_whose_withdrawals_differ_from_the_queue_is_refused(chain, fau
     jspec = jbuild("capella", "minimal")
     state = pre.copy()
     tspec.process_slots(state, 9)
-    payload = harness.empty_execution_payload(tspec, state)
+    payload = build_empty_execution_payload(tspec, state)
     assert len(payload.withdrawals) == WITHDRAWING
     if fault == "amount":
         payload.withdrawals[0].amount += 1
@@ -171,7 +172,7 @@ def test_a_payload_whose_withdrawals_differ_from_the_queue_is_refused(chain, fau
         tspec.process_withdrawals(state, payload)
     with pytest.raises(AssertionError):
         jspec.process_withdrawals(jstate, jpayload)
-    good = harness.empty_execution_payload(tspec, state)  # the payload held copies: the queue is as it was
+    good = build_empty_execution_payload(tspec, state)  # the payload held copies: the queue is as it was
     assert list(good.withdrawals) == list(state.withdrawals_queue) != list(payload.withdrawals)
     tspec.process_withdrawals(state, good)  # the queue's own withdrawals pass, on both
     jspec.process_withdrawals(jstate, jspec.ExecutionPayload.decode_bytes(good.encode_bytes()))

@@ -1,6 +1,6 @@
 """The port stands alone: no module of consensus_specs_tpu_torch imports
-JAX or the JAX package, importing it loads neither, and its entry points
-run on the CUDA card unless a caller asks for the CPU."""
+JAX, the JAX package or PyYAML, importing it loads none of them, and its
+entry points run on the CUDA card unless a caller asks for the CPU."""
 import ast
 import subprocess
 import sys
@@ -18,7 +18,7 @@ from consensus_specs_tpu_torch.ops import sha256 as tdev
 from consensus_specs_tpu_torch.ops import sha256_cuda
 
 PACKAGE = Path(consensus_specs_tpu_torch.__file__).parent
-FORBIDDEN = {"jax", "jaxlib", "consensus_specs_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "consensus_specs_tpu", "yaml"}
 
 
 def _imported_top_names(path: Path) -> set:
@@ -31,7 +31,7 @@ def _imported_top_names(path: Path) -> set:
     return names
 
 
-def test_no_module_imports_jax_or_the_jax_package():
+def test_no_module_imports_jax_the_jax_package_or_yaml():
     sources = sorted(PACKAGE.rglob("*.py"))
     assert len(sources) > 20
     offenders = {str(p.relative_to(PACKAGE)): _imported_top_names(p) & FORBIDDEN for p in sources}
@@ -62,7 +62,7 @@ def test_importing_the_port_loads_neither():
         "    assert spec.__name__ == f'consensus_specs_tpu_torch.specs.{fork}_minimal', spec.__name__\n"
         "    assert all(engine.stage_status(spec).values()) and spec.process_operations.engine_batched_atts\n"
         "assert engine.stage_status(spec)['process_full_withdrawals']\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in {'jax', 'jaxlib', 'consensus_specs_tpu'})\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in {'jax', 'jaxlib', 'consensus_specs_tpu', 'yaml'})\n"
         "assert not bad, bad\n"
         "assert sha256_cuda._lib is None  # nothing built at import\n"
         "assert fq_cuda._lib is None and fq_cuda._pow_lib is None and fq_cuda._curve_lib is None\n"
@@ -71,6 +71,45 @@ def test_importing_the_port_loads_neither():
     proc = subprocess.run([sys.executable, "-c", code], cwd=PACKAGE.parent, capture_output=True, text=True,
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_importing_the_generators_loads_none():
+    code = (
+        "import sys\n"
+        "import consensus_specs_tpu_torch.generators.main\n"
+        "from consensus_specs_tpu_torch.generators import gen_runner, gen_from_tests, gen_typing\n"
+        "from consensus_specs_tpu_torch.generators.runners import operations, ssz_static\n"
+        "from consensus_specs_tpu_torch.cases import operations_attestation\n"
+        "from consensus_specs_tpu_torch.test_framework import attestations, block, context, execution_payload\n"
+        "from consensus_specs_tpu_torch import resilience, exceptions\n"
+        "from consensus_specs_tpu_torch.resilience import journal, supervisor, taxonomy\n"
+        "from consensus_specs_tpu_torch.sched import CaseWriter\n"
+        "from consensus_specs_tpu_torch.debug import decode, encode, random_value\n"
+        "from consensus_specs_tpu_torch.utils import snappy, yaml_emit\n"
+        "yaml_emit.dump({'a': [1]}); yaml_emit.parse('a: [1]\\n')\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in {'jax', 'jaxlib', 'consensus_specs_tpu', 'yaml'})\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=PACKAGE.parent, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_generator_entry_point_defaults_to_cuda(monkeypatch, tmp_path):
+    from consensus_specs_tpu_torch.generators import main as gen_main
+    from consensus_specs_tpu_torch.generators.gen_runner import run_generator
+    from consensus_specs_tpu_torch.ssz import hashing
+
+    monkeypatch.setattr("torch.cuda.is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        gen_main.main(["-o", str(tmp_path), "--runners", "ssz_static"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_generator("ssz_static", [], ["-o", str(tmp_path)])
+    assert bls.backend_name() == "reference" and hashing.backend_name() == "hashlib"
+    assert list(tmp_path.iterdir()) == []  # nothing written
+    # asked for the CPU, the same entry point runs (on no providers here)
+    assert run_generator("ssz_static", [], ["-o", str(tmp_path), "--device", "cpu"]) == \
+        {"generated": 0, "skipped": 0, "failed": 0}
 
 
 def test_entry_points_default_to_cuda(monkeypatch):
