@@ -5,8 +5,8 @@
 Phases, each raising on any mismatch:
 
 0. build: nvcc for sm_90a on every source of ops/csrc (sha256.cu, fq.cu,
-   fq_pow.cu, curve.cu, fq_inv.cu, flag_deltas.cu, probe.cu), one process
-   each, all started together.
+   fq_pow.cu, curve.cu, fq_inv.cu, flag_deltas.cu, fr_fft.cu, probe.cu), one
+   process each, all started together.
 1. env: torch/CUDA versions, the card's name and power limit; the liveness
    probe (probe.cu, ``x + 1`` on (8, 128) int32) against its plain version.
 2. kernels: K1 (sha256_blocks) and K2 (sha256_raw_blocks) on 2^20 random
@@ -32,8 +32,10 @@ Phases, each raising on any mismatch:
    generators and the edge points (infinity, points outside the
    r-torsion, the G1 3-torsion points): bit-exact against their plain
    version on the card (which launches no kernel) and against the host
-   oracle on a sample. After the bls phase the same checks run again at
-   every size a flush launched.
+   oracle on a sample. Each of K3-K9 is also checked at every size the
+   main path's flushes launch it at with the default arguments
+   (``FLUSH_SIZES``), in the same plain run; a size a flush launches
+   outside those is checked after the flushes.
 3. state_root: a mainnet-preset phase0 BeaconState of ``--validators``
    validators with real keys (pubkey(i) = (i + 1) G1); hash_tree_root on
    the device hasher and on the host (hashlib) must agree, with >= 90% of
@@ -99,21 +101,35 @@ Phases, each raising on any mismatch:
    host oracle (the reference BLS, hashlib). Every file byte-identical and
    the journals' entries equal; no case failed or retried; the
    invalid-signature rows False on the card as on the host and exactly
-   those cases replayed; K1 and each of K3-K9 launched. After it the K3-K9
-   checks run again at every size the phase0, altair, capella and
-   generator flushes launched.
-9. fq timing: the K3/K4 kernels (lane-group and one-thread) timed in
-   turns in one profiler window per size, at 4,608 and 16,384 elements and
-   at each kernel's two most frequent sizes of that histogram, beside the
-   bound and the launch floor (the probe's device time). K5/K6 at every
-   size a flush launched them (and at 1 element, for the latency of one
-   product), in turns with the same chain as a loop of K3/K4 launches:
-   device time and wall time a chain. K7/K8 likewise by |x|, at 1 point and
-   every size a flush launched them, in turns with the ladder as a loop of
-   K3/K4 launches. K9 at 1 element, every size a flush launched it and
-   16,385, in turns with K5 at p - 2 (the chain it replaced), beside a
-   bound from its SASS per pipe, as K1/K2's. The kernels
-   line gives each at its most frequent size.
+   those cases replayed; K1 and each of K3-K9 launched. Then phase 10,
+   then the K3-K9 checks at any size the phase0, altair, capella and
+   generator flushes launched outside ``FLUSH_SIZES``, then phase 9.
+9. timing: K3-K9 each at its most frequent size of a flush, in turns in
+   one profiler window (the median of three), beside its bound, the launch
+   floor (the probe's device time) and its plain version's time. The
+   comparisons in turns (K3/K4's one-thread kernels at several sizes,
+   K5-K8 against the loops of K3/K4 launches they replaced, K9 against K5
+   at p - 2, the latency at 1 element) run in ``kernel_turns.py``, from the
+   flush's histogram this script keeps in ``build/smoke_flush.json``.
+10. kzg, the R&D forks: the FFT entry points (``fft_torch.fft_device``
+   forward and inverse, ``das_fft_extension_device``) at a mainnet DAS blob
+   of 16,384 points on K11 fr_fft and K12 fr_mul, equal to crypto/fr.py's;
+   K12 (each op, with the edge values 0, 1, r - 1) and K11 (forward and
+   inverse at 16,384 and 32,768, the das extension at 16,384) bit-exact
+   against their plain versions on the card, timed beside their bounds
+   (their SASS per pipe, or bytes). Then the KZG verifiers on the pairing
+   pipeline (``bls_torch.run_checks``), at mainnet's widths on the minimal
+   preset's 64-power development setup, fixtures from its public secret:
+   the sharding spec's ``verify_degree_proofs`` on 256 body summaries (a
+   block's MAX_SHARD_HEADERS_PER_SHARD x INITIAL_ACTIVE_SHARDS), 8 with a
+   degree proof for a larger count and 2 off the curve, must name exactly
+   those 10; ``verify_kzg_proof_batch`` on 16 blobs x 8 points (8 wrong y,
+   2 malformed, one constant blob's infinity proofs) and
+   ``check_multi_kzg_proof_batch`` on 32 cosets of 8 (2 tampered) must
+   give the exact masks; the das spec's ``sample_data`` -> ``verify_samples``
+   on a 16-point blob passes, and names a tampered sample. Each call is
+   one pairing call making ``PAIRING_CALL_LAUNCHES``; the host oracle
+   decides a valid and a tampered row of each batch the same.
 
 Prints the whole report as one ``[report]`` JSON line, then one JSON line
 of kernel records, the card's name and power limit, and last
@@ -142,11 +158,13 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
 from consensus_specs_tpu_torch import engine, harness, probe  # noqa: E402
-from consensus_specs_tpu_torch.crypto import bls  # noqa: E402
+from consensus_specs_tpu_torch.config import preset_for  # noqa: E402
+from consensus_specs_tpu_torch.crypto import bls, fr, kzg  # noqa: E402
 from consensus_specs_tpu_torch.crypto.bls import ciphersuite  # noqa: E402
 from consensus_specs_tpu_torch.engine import delta_checks as dc  # noqa: E402
 from consensus_specs_tpu_torch.engine import ops_torch  # noqa: E402
-from consensus_specs_tpu_torch.ops import bls_torch, cuda_build, fq, fq_cuda, fq_plain, tower  # noqa: E402
+from consensus_specs_tpu_torch.ops import bls_torch, cuda_build, fft_torch, fq, fq_cuda, fq_plain, fr_cuda  # noqa: E402
+from consensus_specs_tpu_torch.ops import fr_plain, kzg_torch  # noqa: E402
 from consensus_specs_tpu_torch.ops import curve_torch as cj  # noqa: E402
 from consensus_specs_tpu_torch.ops import ladder_checks as lc  # noqa: E402
 from consensus_specs_tpu_torch.ops import sha256 as dev  # noqa: E402
@@ -154,6 +172,8 @@ from consensus_specs_tpu_torch.ops import sha256_cuda, sha256_plain  # noqa: E40
 from consensus_specs_tpu_torch.specs import build_spec  # noqa: E402
 
 SOURCE = "consensus_specs_tpu_torch/ops/csrc/sha256.cu"
+# the flush's launch-size histogram, kept for kernel_turns.py
+FLUSH_RECORD = ROOT / "build" / "smoke_flush.json"
 FQ_SOURCE = "consensus_specs_tpu_torch/ops/csrc/fq.cu"
 FQ_POW_SOURCE = "consensus_specs_tpu_torch/ops/csrc/fq_pow.cu"
 CURVE_SOURCE = "consensus_specs_tpu_torch/ops/csrc/curve.cu"
@@ -221,6 +241,23 @@ FLUSH_LAUNCHES = {"fq_mul": 1178, "fq_addsub": 9062, "fq_pow": 2, "fq2_pow": 4, 
                   "g2_mul_static": 3, "fq_inv": 4}
 DEFAULT_VALIDATORS = 1 << 19
 FQ_SIZES = [128 * 2 * 18, 16384]  # K3/K4 checked first: an Fq12 product of 128 Miller loops, a decode
+# Every other size the main path's flushes launch K3-K9 at with the default
+# arguments (2^19 validators, seed 0: the phase0, altair, capella and
+# generator flushes; the report's fq/pow/inv/ladder_checked_sizes of a run
+# on the card), so that the first kernel checks cover them with one plain
+# run of each of K5-K9; a size a flush launches outside these is checked
+# after the flushes (``flush_sizes_unchecked_before`` in the report).
+FLUSH_SIZES = {
+    "fq": [1, 2, 3, 4, 6, 8, 9, 10, 12, 15, 16, 18, 20, 23, 24, 30, 31, 32, 36, 40, 48, 60, 61, 64, 72, 80, 96, 120,
+           121, 130, 144, 146, 239, 241, 242, 260, 288, 292, 390, 421, 438, 520, 584, 780, 876, 1040, 1168, 1170,
+           1300, 1314, 1460, 1560, 1752, 2080, 2336, 2340, 2628, 3120, 3504, 4160, 4672, 4680, 5200, 5256, 5840,
+           6240, 7008, 8320, 9344, 9360, 10512, 13347, 14316, 14372, 14820, 16385, 18720, 21024],
+    "fq_pow": [2, 3, 4, 8, 23, 292, 421, 13347, 14316, 14372, 14820],
+    "fq2_pow": [2, 4, 130, 146, 292],
+    "fq_inv": [2, 4, 130, 146, 292],
+    "g1_mul_static": [3, 8, 23, 421, 13347, 14316, 14372, 14820],
+    "g2_mul_static": [2, 146],
+}
 
 P = fq.P_INT
 RINV = pow(1 << 384, -1, P)
@@ -326,9 +363,10 @@ def traced(run) -> list:
     return [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
-def device_ms_turns(fns: dict, reps: int = 20, windows: int = 3, tries: int = 9) -> dict:
+def device_ms_turns(fns: dict, reps: int = 20, windows: int = 3, tries: int = 9, per_call: dict = None) -> dict:
     """Mean device time of one launch of each kernel in ``fns`` (a
-    substring of its symbol -> a call that launches it), the calls made in
+    substring of its symbol -> a call that launches it, ``per_call[k]``
+    times where given, else once), the calls made in
     turns in one profiler window: in order on even rounds, reversed on odd
     ones; the median over ``windows`` windows. A small kernel's CUDA-event
     time per call is the host's time to enqueue it; this is the time the
@@ -350,7 +388,7 @@ def device_ms_turns(fns: dict, reps: int = 20, windows: int = 3, tries: int = 9)
         averages = traced(run)
         events = {k: [e for e in averages if k in e.key] for k in fns}
         counts = {k: sum(e.count for e in ev) for k, ev in events.items()}
-        if min(counts.values()) >= max(1, reps // 2):
+        if all(counts[k] >= max(1, reps * (per_call or {}).get(k, 1) // 2) for k in fns):
             kept.append({k: sum(e.self_device_time_total for e in ev) / counts[k] / 1e3 for k, ev in events.items()})
             if len(kept) == windows:
                 return {k: statistics.median(w[k] for w in kept) for k in fns}
@@ -359,8 +397,8 @@ def device_ms_turns(fns: dict, reps: int = 20, windows: int = 3, tries: int = 9)
     raise AssertionError(f"the profiler saw enough launches in {len(kept)} of {tries} windows, {windows} needed")
 
 
-def device_ms(fn, kernel: str, reps: int = 20, windows: int = 3) -> float:
-    return device_ms_turns({kernel: fn}, reps, windows)[kernel]
+def device_ms(fn, kernel: str, reps: int = 20, windows: int = 3, per_call: int = 1) -> float:
+    return device_ms_turns({kernel: fn}, reps, windows, per_call={kernel: per_call})[kernel]
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -376,12 +414,12 @@ def phase_build(report: dict) -> None:
     """One nvcc per source, all started together."""
     t0 = time.perf_counter()
     builds = (sha256_cuda.build, fq_cuda.build, fq_cuda.build_pow, fq_cuda.build_curve, fq_cuda.build_inv,
-              ops_torch.build, probe.build)
+              ops_torch.build, fr_cuda.build, probe.build)
     with ThreadPoolExecutor(max_workers=len(builds)) as pool:
         libs = list(pool.map(lambda build: build(verbose=True), builds))
     report["build_s"] = time.perf_counter() - t0
     print(f"[build] {SOURCE}, {FQ_SOURCE}, {FQ_POW_SOURCE}, {CURVE_SOURCE}, {FQ_INV_SOURCE}, {FLAG_DELTAS_SOURCE}, "
-          f"{PROBE_SOURCE} in "
+          f"{FR_SOURCE}, {PROBE_SOURCE} in "
           f"{report['build_s']:.1f}s: "
           f"{[lib.name for lib in libs]}", flush=True)
 
@@ -478,40 +516,6 @@ def phase_fq_kernels(report: dict, seed: int, sizes: list, label: str) -> None:
           f"({time.perf_counter() - t0:.1f}s)", flush=True)
 
 
-def phase_fq_timing(report: dict, card: "Card", seed: int, hist: dict) -> None:
-    """K3/K4's lane-group and one-thread kernels timed in turns, one
-    profiler window per size, at 4,608 and 16,384 elements and at each
-    kernel's two most frequent sizes of a flush (``hist``: elements ->
-    launches), beside the bound and the launch floor; K4 as op 1 (sub).
-    Each kernel's record is taken at its most frequent size."""
-    rng = np.random.default_rng(seed + 1)
-    floor = report["probe"]["ms"]
-    out = {}
-    for name, op, ops in (("fq_mul", "mul", K3_INT_OPS), ("fq_addsub", "sub", K4_INT_OPS)):
-        top = sorted(hist[name], key=lambda n: (-hist[name][n], n))[:2]
-        variants = fq_variants(op)
-        by_size = {}
-        for n in dict.fromkeys(top + FQ_SIZES):
-            a, b, _, _ = field_pairs(n, rng, edges=False)
-            ms = device_ms_turns({f"{name}_{FQ_SYMBOLS[k]}_kernel": (lambda f=f: f(a, b)) for k, f in variants.items()})
-            ms = {k: ms[f"{name}_{FQ_SYMBOLS[k]}_kernel"] for k in variants}
-            bound, bound_by = card.bound_ms(n, ops, FQ_BYTES * n)
-            by_size[n] = {"ms": ms, "bound_ms": bound, "bound_by": bound_by, "flush_launches": hist[name].get(n, 0)}
-            print(f"[fq_timing] {name} at {n} elements ({hist[name].get(n, 0)} launches a flush): "
-                  + ", ".join(f"{k} {v * 1e3:.3f} us" for k, v in ms.items())
-                  + f"; bound {bound * 1e3:.3f} us ({bound_by}), launch floor {floor * 1e3:.3f} us", flush=True)
-        n = top[0]
-        a, b, _, _ = field_pairs(n, rng, edges=False)
-        plain_ms = cuda_ms(lambda: fq_plain_op(op, a, b), reps=5)
-        for variant, fn in variants.items():
-            out[name if variant == "main" else f"{name}_{variant}"] = {
-                "elements": n, "measurement_only": variant != "main", "ms": by_size[n]["ms"][variant],
-                "call_ms": cuda_ms(lambda: fn(a, b)), "plain_ms": plain_ms, "bound_ms": by_size[n]["bound_ms"],
-                "bound_by": by_size[n]["bound_by"], "floor_ms": floor, "library_ms": None, "by_size": by_size,
-            }
-    report["fq_timing"] = out
-
-
 POW_SIZES = [1, 260, 16385]  # one element, a flush's 2 x 130 rows, a decode's 16,385 keys
 # K5/K6: the wrapper, the plain version, the JAX function replaced, the
 # exponent each is timed with (its main-path callers' longest: the time
@@ -557,24 +561,6 @@ def chain_work(name: str, e: int) -> tuple:
         return squares + products, 0, bits + ones, squares + products
     return (2 * squares + 3 * products, 3 * squares + 5 * products, 2 * bits + 3 * ones,
             squares + products)
-
-
-def loop_chain(name: str, a: torch.Tensor, bits: list) -> torch.Tensor:
-    """The chain as the main path ran it before K5/K6: one K3 launch a
-    product (Fq), or the tower's squaring and product on K3/K4 (Fq2)."""
-    if name == "fq_pow":
-        r = fq.const(fq.ONE_MONT, a.device).expand(a.shape)
-        for bit in bits:
-            r = fq_cuda.fq_mul(r, r)
-            if bit:
-                r = fq_cuda.fq_mul(r, a)
-        return r
-    r = fq.const(tower.ONE2, a.device).expand(a.shape)
-    for bit in bits:
-        r = tower.fq2_square(r)
-        if bit:
-            r = tower.fq2_mul(r, a)
-    return r
 
 
 def pow_operand(n: int, degree: int, rng, edges: bool = True) -> tuple:
@@ -633,102 +619,6 @@ def phase_pow_kernels(report: dict, seed: int, sizes: dict, label: str) -> None:
           f"{ {k: errs[k] for k in POW} } ({time.perf_counter() - t0:.1f}s)", flush=True)
 
 
-def loop_turns(symbol: str, new, old, reps: int, windows: int = 3) -> dict:
-    """A kernel (``new``: a call that launches it once; ``symbol``: a
-    substring of its name) in turns with ``old``, the loop of K3/K4
-    launches it replaced: device time from one profiler window (the
-    loop's: every kernel it launched, copies included), and wall time a
-    call on the host's clock, from its call to its result, in a second
-    round of turns without the profiler. CUPTI may drop events: a window
-    that saw fewer than half of the kernel's launches or 90% of the
-    loop's K3/K4 launches is measured again, up to ``windows`` times."""
-    before = sum(fq_cuda.launches[k] for k in ("fq_mul", "fq_addsub"))
-    old()
-    per_loop = sum(fq_cuda.launches[k] for k in ("fq_mul", "fq_addsub")) - before
-
-    def run():
-        for r in range(reps):
-            for fn in (new, old) if r % 2 == 0 else (old, new):
-                fn()
-
-    for _ in range(windows):
-        events = traced(run)
-        ours = [e for e in events if symbol in e.key]
-        base = [e for e in events if "fq_mul_lanes" in e.key or "fq_addsub_lanes" in e.key]
-        seen, seen_base = sum(e.count for e in ours), sum(e.count for e in base)
-        if seen >= max(1, reps // 2) and seen_base >= 0.9 * reps * per_loop:
-            break
-        print(f"[profiler] saw {seen} of {reps} {symbol} launches, {seen_base} of {reps * per_loop} K3/K4", flush=True)
-    else:
-        raise AssertionError(f"the profiler saw too few launches in {windows} windows")
-    ours_us = sum(e.self_device_time_total for e in ours)
-    scale = reps * per_loop / seen_base  # the loop's launches made / seen: the profiler may drop some
-    wall = {"new": 0.0, "old": 0.0}
-    for r in range(reps):
-        for key, fn in (("new", new), ("old", old)) if r % 2 == 0 else (("old", old), ("new", new)):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall[key] += (time.perf_counter() - t0) * 1e3 / reps
-    return {"ms": ours_us / seen / 1e3,
-            "loop_device_ms": (sum(e.self_device_time_total for e in events) - ours_us) / 1e3 / reps * scale,
-            "loop_k3k4_device_ms": sum(e.self_device_time_total for e in base) / 1e3 / reps * scale,
-            "loop_launches": per_loop, "wall_ms": wall["new"], "loop_wall_ms": wall["old"]}
-
-
-def phase_pow_timing(report: dict, card: "Card", seed: int, hist: dict) -> None:
-    """K5/K6 at 1 element and at every size a flush launched them (``hist``:
-    elements -> launches), for each exponent of their turns, each in turns
-    with the loop of K3/K4 launches it replaced, beside its bounds:
-    operations (``resident_int_ops`` of the chain's products and sums,
-    times n), bytes (each element read and written once), the launch floor,
-    and a latency estimate: the chain's depth in product rounds x one
-    product's latency, read from K5 at 1 element. For K5 that is its own
-    time at 1 element, a floor for it at larger n as K7/K8's is; for K6 it
-    is an estimate only, since K6's round (a batch of sums and products on
-    two subgroups, then a shuffle) is not K5's lone product, and nothing
-    shows it takes at least as long. Each kernel's record is taken at its
-    most frequent size with its timed exponent, with its time per round."""
-    rng = np.random.default_rng([seed, 7])
-    floor = report["probe"]["ms"]
-    out, product_ms = {}, None
-    for name, k in POW.items():
-        by_exponent = {}
-        for exponent in k["turns"]:
-            e = fq_plain.EXPONENTS[exponent]
-            bits = fq_plain.bits_msb(e)
-            products, sums, serial, depth = chain_work(name, e)
-            by_size = by_exponent[exponent] = {}
-            for n in dict.fromkeys([1] + sorted(hist[name])):
-                a, _ = pow_operand(n, k["degree"], rng, edges=False)
-                t = loop_turns(f"{name}_kernel", lambda: k["kernel"](a, bits), lambda: loop_chain(name, a, bits),
-                               reps=4 if n > 1 else 6)
-                if name == "fq_pow" and n == 1 and exponent == k["timed"]:
-                    product_ms = t["ms"] / depth
-                bound, bound_by = card.bound_ms(n, resident_int_ops(products, sums, k["degree"]),
-                                                2 * 128 * k["degree"] * n)
-                by_size[n] = {**t, "bound_ms": bound, "bound_by": bound_by,
-                              "latency_estimate_ms": depth * product_ms, "flush_launches": hist[name].get(n, 0),
-                              "serial": serial, "rounds": depth, "us_per_round": t["ms"] * 1e3 / depth}
-                print(f"[pow_timing] {name} at {n} elements ({hist[name].get(n, 0)} launches a flush, {exponent}): "
-                      f"{t['ms'] * 1e3:.1f} us on the card, {t['wall_ms']:.3f} ms a chain; the loop of "
-                      f"{t['loop_launches']} K3/K4 launches {t['loop_device_ms'] * 1e3:.1f} us on the card "
-                      f"({t['loop_k3k4_device_ms'] * 1e3:.1f} in K3/K4), {t['loop_wall_ms']:.3f} ms a chain; bound "
-                      f"{bound * 1e3:.2f} us ({bound_by}), latency estimate {depth * product_ms * 1e3:.1f} us "
-                      f"({products} products, {serial} serial, {depth} rounds: "
-                      f"{t['ms'] * 1e3 / depth:.3f} us a round), launch floor {floor * 1e3:.3f} us", flush=True)
-        n = sorted(hist[name], key=lambda v: (-hist[name][v], v))[0]
-        bits = fq_plain.bits_msb(fq_plain.EXPONENTS[k["timed"]])
-        a, _ = pow_operand(n, k["degree"], rng, edges=False)
-        timed = by_exponent[k["timed"]]
-        out[name] = {"elements": n, "exponent": k["timed"], "plain_ms": cuda_ms(lambda: k["plain"](a, bits), reps=2),
-                     "library_ms": None, "floor_ms": floor, "by_size": timed, "by_exponent": by_exponent,
-                     **{key: timed[n][key] for key in ("ms", "bound_ms", "bound_by", "latency_estimate_ms",
-                                                       "serial", "rounds", "us_per_round")}}
-    report["pow_timing"] = out
-
-
 INV_REPLACES = "consensus_specs_tpu/ops/fq.py:201"
 P_MINUS_2_BITS = fq_plain.bits_msb(P - 2)
 
@@ -759,42 +649,6 @@ def phase_inv_kernels(report: dict, seed: int, sizes: list, label: str) -> None:
     print(f"[kernels] K9 ({label}): bit-exact against Fermat's a^(p-2) at {sizes} elements, {len(FQ_EDGES)} edge "
           f"values where n has room, Python integers on a sample: {errs.get('fq_inv')} "
           f"({time.perf_counter() - t0:.1f}s)", flush=True)
-
-
-def phase_inv_timing(report: dict, card: "Card", seed: int, hist: dict) -> None:
-    """K9 at 1 element, at every size a flush launched it (``hist``) and at
-    16,385, in turns with K5 at p - 2 (the chain it replaced) in one
-    profiler window, beside its bounds: operations (the SASS counts of
-    ``sass_pipes`` times n), bytes (each element read and written once), the launch floor, and the
-    latency floor: its own time at 1 element (one thread's chain of
-    dependent steps, the card otherwise idle). The record is taken at its
-    most frequent flush size."""
-    rng = np.random.default_rng([seed, 12])
-    floor = report["probe"]["ms"]
-    by_size = {}
-    sass = sass_pipes(fq_cuda.build_inv(), K9_SASS, trips=K9_ROUNDS, loops=1)
-    print(f"[inv_timing] fq_inv SASS an element: {sass['alu']} ALU, {sass['fma']} FMA, {sass['issue']} issued; "
-          f"bound by {sass['bound_by_pipe']}: {sass['histogram']}", flush=True)
-    for n in dict.fromkeys([1] + sorted(hist["fq_inv"]) + [16385]):
-        a, _ = pow_operand(n, 1, rng, edges=False)
-        ms = device_ms_turns({"fq_inv_kernel": lambda: fq_cuda.fq_inv(a),
-                              "fq_pow_kernel": lambda: fq_cuda.fq_pow(a, P_MINUS_2_BITS)}, reps=6)
-        bound, bound_by = card.sass_bound_ms(n, sass, 2 * 128 * n)
-        by_size[n] = {"ms": ms["fq_inv_kernel"], "k5_p_minus_2_ms": ms["fq_pow_kernel"],
-                      "ratio": ms["fq_inv_kernel"] / ms["fq_pow_kernel"], "bound_ms": bound, "bound_by": bound_by,
-                      "latency_floor_ms": by_size[1]["ms"] if n > 1 else ms["fq_inv_kernel"],
-                      "flush_launches": hist["fq_inv"].get(n, 0)}
-        r = by_size[n]
-        print(f"[inv_timing] fq_inv at {n} elements ({r['flush_launches']} launches a flush): {r['ms'] * 1e3:.1f} us "
-              f"on the card; K5 at p - 2 in turns {r['k5_p_minus_2_ms'] * 1e3:.1f} us ({r['ratio']:.3f}x); bound "
-              f"{bound * 1e3:.3f} us ({bound_by}), latency floor "
-              f"{r['latency_floor_ms'] * 1e3:.1f} us, launch floor {floor * 1e3:.3f} us", flush=True)
-    n = sorted(hist["fq_inv"], key=lambda v: (-hist["fq_inv"][v], v))[0]
-    a, _ = pow_operand(n, 1, rng, edges=False)
-    report["inv_timing"] = {"fq_inv": {
-        "elements": n, "plain_ms": cuda_ms(lambda: fq_plain.pow_bits(a, P_MINUS_2_BITS), reps=2),
-        "library_ms": None, "floor_ms": floor, "by_size": by_size, "sass": sass,
-        **{key: by_size[n][key] for key in ("ms", "bound_ms", "bound_by", "latency_floor_ms", "k5_p_minus_2_ms")}}}
 
 
 # K7/K8: the wrapper, the group, and the adapter of the ladder's K3/K4
@@ -876,51 +730,76 @@ def phase_ladder_kernels(report: dict, seed: int, sizes: dict, label: str) -> No
           f"{ {k: errs.get(k) for k in LADDER} } ({time.perf_counter() - t0:.1f}s)", flush=True)
 
 
-def phase_ladder_timing(report: dict, card: "Card", seed: int, hist: dict) -> None:
-    """K7/K8 by |x| at 1 element and at every size a flush launched them
-    (``hist``: elements -> launches), each in turns with the loop of K3/K4
-    launches it replaced (``curve_torch.ladder`` on FQ/FQ2), beside its
-    bounds: operations (``resident_int_ops`` of ``ladder_work``'s products
-    and sums, times n), bytes (each point read and written once), the
-    launch floor, and the latency floor: the kernel's own time at 1
-    element, where a ladder is one dependent chain of products on one group
-    and the card has nothing else to run. That floor is self-referential:
-    it bounds the kernel at larger n, and says nothing of whether one
-    ladder is slow. Each kernel's record is taken at its most frequent
-    size."""
-    rng = np.random.default_rng([seed, 9])
+def once_ms(fn) -> float:
+    """One call of ``fn`` on the card, from CUDA events (for the plain
+    versions of K5-K9: each call is seconds, and the checks ran it warm)."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def phase_timing(report: dict, card: "Card", seed: int, hist: dict) -> None:
+    """K3-K9 each at its most frequent size of a flush (``hist``: kernel ->
+    elements -> launches), with the one-thread K3/K4 at K3/K4's sizes, all
+    in turns in one profiler window (the median of three windows), beside
+    each one's bound, the launch floor and its plain version's time.
+    Bounds: K3/K4 from the algorithm's operations (``K3_INT_OPS``,
+    ``K4_INT_OPS``) or bytes; K5-K8 from ``resident_int_ops`` of the chain's
+    or the ladder's products and sums (``chain_work``, ``ladder_work``) or
+    bytes; K9 from its SASS per pipe (``sass_pipes``). The comparisons in
+    turns (K3/K4's sizes, K5-K8 against the loops of K3/K4 launches they
+    replaced, K9 against K5 at p - 2, the latency at 1 element) run in
+    ``kernel_turns.py``."""
+    rng = np.random.default_rng([seed, 13])
     floor = report["probe"]["ms"]
-    k = cj.X_PARAM
-    out = {}
+    top = {k: sorted(hist[k], key=lambda n: (-hist[k][n], n))[0] for k in fq_cuda.KERNELS}
+    calls, rec = {}, {}  # profiler symbol -> call; record key -> record
+    for name, op, ops in (("fq_mul", "mul", K3_INT_OPS), ("fq_addsub", "sub", K4_INT_OPS)):
+        n = top[name]
+        a, b, _, _ = field_pairs(n, rng, edges=False)
+        bound, bound_by = card.bound_ms(n, ops, FQ_BYTES * n)
+        plain_ms = cuda_ms(lambda: fq_plain_op(op, a, b), reps=5)
+        for variant, fn in fq_variants(op).items():
+            calls[f"{name}_{FQ_SYMBOLS[variant]}_kernel"] = lambda fn=fn, a=a, b=b: fn(a, b)
+            rec[name if variant == "main" else f"{name}_{variant}"] = {
+                "symbol": f"{name}_{FQ_SYMBOLS[variant]}_kernel", "elements": n, "measurement_only": variant != "main",
+                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by}
+    for name, k in POW.items():
+        n, e = top[name], fq_plain.EXPONENTS[k["timed"]]
+        bits = fq_plain.bits_msb(e)
+        a, _ = pow_operand(n, k["degree"], rng, edges=False)
+        products, sums, _, _ = chain_work(name, e)
+        bound, bound_by = card.bound_ms(n, resident_int_ops(products, sums, k["degree"]), 2 * 128 * k["degree"] * n)
+        calls[f"{name}_kernel"] = lambda k=k, a=a, bits=bits: k["kernel"](a, bits)
+        rec[name] = {"symbol": f"{name}_kernel", "elements": n, "exponent": k["timed"], "bound_ms": bound,
+                     "bound_by": bound_by, "plain_ms": once_ms(lambda: k["plain"](a, bits))}
+    n = top["fq_inv"]
+    a, _ = pow_operand(n, 1, rng, edges=False)
+    sass = sass_pipes(fq_cuda.build_inv(), K9_SASS, trips=K9_ROUNDS, loops=1)
+    bound, bound_by = card.sass_bound_ms(n, sass, 2 * 128 * n)
+    calls["fq_inv_kernel"] = lambda a=a: fq_cuda.fq_inv(a)
+    rec["fq_inv"] = {"symbol": "fq_inv_kernel", "elements": n, "bound_ms": bound, "bound_by": bound_by, "sass": sass,
+                     "plain_ms": once_ms(lambda: fq_plain.pow_bits(a, P_MINUS_2_BITS))}
     for name, spec in LADDER.items():
-        g2 = spec["g2"]
-        products, sums, serial, rounds = ladder_work(g2, k)
-        by_size = {}
-        for n in dict.fromkeys([1] + sorted(hist[name])):
-            pt, _ = lc.ladder_points(n, g2, rng, "cuda", distinct=8)
-            t = loop_turns(f"{name}_kernel", lambda: spec["kernel"](pt, k), lambda: cj.ladder(spec["F"], pt, k),
-                           reps=4 if n > 1 else 6)
-            bound, bound_by = card.bound_ms(n, resident_int_ops(products, sums, 3 * (1 + g2)),
-                                            6 * 128 * (1 + g2) * n)
-            by_size[n] = {**t, "bound_ms": bound, "bound_by": bound_by,
-                          "latency_floor_ms": (by_size[1] if n > 1 else t)["ms"],
-                          "flush_launches": hist[name].get(n, 0), "serial": serial, "rounds": rounds,
-                          "us_per_round": t["ms"] * 1e3 / rounds}
-            r = by_size[n]
-            print(f"[ladder_timing] {name} at {n} elements ({r['flush_launches']} launches a flush): "
-                  f"{r['ms'] * 1e3:.1f} us on the card, {r['wall_ms']:.3f} ms a ladder; the loop of "
-                  f"{t['loop_launches']} K3/K4 launches {t['loop_device_ms'] * 1e3:.1f} us on the card "
-                  f"({t['loop_k3k4_device_ms'] * 1e3:.1f} in K3/K4), {t['loop_wall_ms']:.3f} ms a ladder; bound "
-                  f"{bound * 1e3:.2f} us ({bound_by}; {products} products, {sums} sums; {serial} serial, {rounds} "
-                  f"batched rounds: {r['us_per_round']:.3f} us a round), latency floor "
-                  f"{r['latency_floor_ms'] * 1e3:.1f} us, launch floor {floor * 1e3:.3f} us", flush=True)
-        n = sorted(hist[name], key=lambda v: (-hist[name][v], v))[0]
+        n, g2 = top[name], spec["g2"]
         pt, _ = lc.ladder_points(n, g2, rng, "cuda", distinct=8)
-        out[name] = {"elements": n, "plain_ms": cuda_ms(lambda: cj.scalar_mul_static_plain(spec["F"], pt, k), reps=2),
-                     "library_ms": None, "floor_ms": floor, "by_size": by_size,
-                     **{key: by_size[n][key] for key in ("ms", "bound_ms", "bound_by", "latency_floor_ms", "serial",
-                                                         "rounds", "us_per_round")}}
-    report["ladder_timing"] = out
+        products, sums, _, _ = ladder_work(g2, cj.X_PARAM)
+        bound, bound_by = card.bound_ms(n, resident_int_ops(products, sums, 3 * (1 + g2)), 6 * 128 * (1 + g2) * n)
+        calls[f"{name}_kernel"] = lambda spec=spec, pt=pt: spec["kernel"](pt, cj.X_PARAM)
+        rec[name] = {"symbol": f"{name}_kernel", "elements": n, "bound_ms": bound, "bound_by": bound_by,
+                     "plain_ms": once_ms(lambda: cj.scalar_mul_static_plain(spec["F"], pt, cj.X_PARAM))}
+    ms = device_ms_turns(calls, reps=6)
+    for key, r in rec.items():
+        r.update(ms=ms[r.pop("symbol")], library_ms=None, floor_ms=floor, flush_launches=hist[key.split("_thread")[0]]
+                 .get(r["elements"], 0))
+        print(f"[timing] {key} at {r['elements']} elements ({r['flush_launches']} launches a flush): "
+              f"{r['ms'] * 1e3:.1f} us on the card; bound {r['bound_ms'] * 1e3:.3f} us ({r['bound_by']}), launch floor "
+              f"{floor * 1e3:.3f} us; plain {r['plain_ms']:.3f} ms", flush=True)
+    report["timing"] = rec
 
 
 # K1/K2's kernel symbols (sha256.cu's template, with and without the
@@ -1740,6 +1619,312 @@ def generators_phase(report: dict) -> tuple:
     return {"launches": {**sha_launches, **launches}}, sizes
 
 
+# Phase 10, kzg: the R&D forks' FFT and KZG checks on the card. The FFT at
+# a mainnet DAS blob of MAX_SAMPLES_PER_BLOCK x POINTS_PER_SAMPLE points and
+# its extension to twice that; the KZG batches at mainnet's widths on the
+# minimal preset's 64-power development setup (mainnet's 16,384 powers are
+# ~11 minutes of host scalar multiplications; a row is two pairings
+# whatever the setup's size).
+FR_SOURCE = "consensus_specs_tpu_torch/ops/csrc/fr_fft.cu"
+FR_FFT_REPLACES = "consensus_specs_tpu/ops/fft_jax.py:196"
+FR_MUL_REPLACES = "consensus_specs_tpu/ops/fft_jax.py:136"
+# the kernels a forward transform and K12's product run, by their mangled names
+FR_SASS = {"fr_mul": "fr_mul_kernelILi0EE", "first": "fr_fft_stage_kernelILb1ELb0ELb0EE",
+           "middle": "fr_fft_stage_kernelILb0ELb0ELb0EE", "last": "fr_fft_stage_kernelILb0ELb1ELb0EE"}
+FR_ROW_BYTES, FR_TWIDDLE_BYTES = 4 * fr_plain.N_LIMBS, 4 * fr_cuda.N_WORDS
+KZG_TAMPERED, KZG_MALFORMED = 8, 2  # degree-proof and single-opening rows
+KZG_COSET_ROWS, KZG_COSET_TAMPERED = 32, 2
+DAS_BLOB_POINTS = 16  # a minimal DAS blob: 4 samples of 8 points after extension
+# The K3-K9 launches of one pairing call of two-pair rows (bls_torch.run_checks:
+# the batched Miller loop, the tree product and the fast final exponentiation;
+# K9 once, in tower.fq12_inv), whatever its rows. Counted on the CPU by
+# wrapping fq's dispatch (fq.mul, fq._addsub, fq.pow_bits, fq.fq2_pow_bits,
+# fq.inv) around one call of three rows.
+PAIRING_CALL_LAUNCHES = {"fq_mul": 774, "fq_addsub": 8203, "fq_pow": 0, "fq2_pow": 0, "g1_mul_static": 0,
+                         "g2_mul_static": 0, "fq_inv": 1}
+
+
+def fr_ints(n: int, rng) -> list:
+    return [int.from_bytes(rng.bytes(32), "big") % fr_plain.P_INT for _ in range(n)]
+
+
+def fr_kernel_checks(card: "Card", rng, sizes: list) -> dict:
+    """K12 (each op) at the blob's size on random values with the edge
+    values 0, 1 and r - 1 in every pairing as the last rows, a one-element
+    operand either side, against its plain version on the card and Python
+    integers on a sample; K11 forward and inverse at each of ``sizes`` and
+    the das extension at the first, against their plain versions on the
+    card. Then each kernel timed by the profiler (the median of three
+    windows) at each size, beside its bound (its SASS per pipe or its
+    bytes) and its plain version's time: a launch each. A K11 launch is
+    one stage, and its bound and plain time are the transform's over its
+    log2 n stages; the transform's own are kept as ``transform_*``."""
+    p = fr_plain.P_INT
+    n = sizes[0]
+    edges = [(x, y) for x in (0, 1, p - 1) for y in (0, 1, p - 1)]
+    ints = [tuple(fr_ints(2, rng)) for _ in range(n - len(edges))] + edges
+    av, bv = [x for x, _ in ints], [y for _, y in ints]
+    a, b = (torch.from_numpy(fr_plain.to_limbs(v)).cuda() for v in (av, bv))
+    sample = list(range(0, n - len(edges), n // 64)) + list(range(n - len(edges), n))
+    rinv = pow(fr_plain.R_INT, -1, p)
+    refs = {fr_cuda.OP_MUL: (fr_plain.mul, lambda x, y: x * y * rinv % p),
+            fr_cuda.OP_ADD: (fr_plain.add, lambda x, y: (x + y) % p),
+            fr_cuda.OP_SUB: (fr_plain.sub, lambda x, y: (x - y) % p)}
+    errs = {"fr_mul": 0, "fr_fft": 0}
+    for op, (plain, ref) in refs.items():
+        got = fr_cuda.fr_mul(a, b, op)
+        err = max_abs_err(got, plain(a, b))
+        require(err == 0, f"fr_mul op {op} disagrees with its plain version at {n} (max abs err {err})")
+        require(list(fr_plain.from_limbs(got[sample])) == [ref(av[i], bv[i]) for i in sample],
+                f"fr_mul op {op} disagrees with Python integers at {n}")
+        for x, y in ((a[:1], b), (a, b[:1])):
+            e = max_abs_err(fr_cuda.fr_mul(x, y, op), plain(x, y))
+            require(e == 0, f"fr_mul op {op} with a one-element operand disagrees (max abs err {e})")
+        errs["fr_mul"] = max(errs["fr_mul"], err)
+    for m in sizes:
+        x = fr_plain.to_mont(torch.from_numpy(fr_plain.to_limbs(fr_ints(m, rng))).cuda())
+        for inverse in (False, True):
+            err = max_abs_err(fr_cuda.fr_fft(x, m, inverse), fr_plain.fft(x, m, inverse))
+            require(err == 0, f"fr_fft {'inverse' if inverse else 'forward'} disagrees with its plain version at {m} "
+                              f"(max abs err {err})")
+            errs["fr_fft"] = max(errs["fr_fft"], err)
+    x = fr_plain.to_mont(torch.from_numpy(fr_plain.to_limbs(fr_ints(n, rng))).cuda())
+    err = max_abs_err(fft_torch.das_extension(x, n), fr_plain.das_extension(x, n))
+    require(err == 0, f"the das extension on K11 disagrees with its plain version at {n} (max abs err {err})")
+    print(f"[kzg] K12 fr_mul (ops mul, add, sub) bit-exact against its plain version at {n} elements with the edge "
+          f"pairs of 0, 1, r - 1 and a one-element operand, Python integers on a sample; K11 fr_fft forward and "
+          f"inverse at {sizes} and the das extension at {n}: {errs}", flush=True)
+
+    lib = fr_cuda.build()
+    sass = {k: sass_pipes(lib, symbol) for k, symbol in FR_SASS.items()}
+    print(f"[kzg] SASS a thread: " + "; ".join(f"{k} {v['alu']} ALU, {v['fma']} FMA, {v['issue']} issued "
+                                             f"({v['bound_by_pipe']})" for k, v in sass.items()), flush=True)
+    out = {}
+    for m in sizes:
+        ints = fr_ints(2 * m, rng)
+        a, b = (torch.from_numpy(fr_plain.to_limbs(v)).cuda() for v in (ints[:m], ints[m:]))
+        x = fr_plain.to_mont(a)
+        stages = m.bit_length() - 1
+        mul_bound = card.sass_bound_ms(m, sass["fr_mul"], 3 * FR_ROW_BYTES * m)
+        fft_cycles = m // 2 * (sass["first"]["sm_cycles"] + (stages - 2) * sass["middle"]["sm_cycles"]
+                               + sass["last"]["sm_cycles"])
+        fft_bound = card.cycles_bound_ms(fft_cycles, 2 * FR_ROW_BYTES * m + FR_TWIDDLE_BYTES * m // 2)
+        stage_ms = device_ms(lambda: fr_cuda.fr_fft(x, m), "fr_fft_stage_kernel", per_call=stages)
+        fft_plain_ms = once_ms(lambda: fr_plain.fft(x, m))
+        recs = {
+            "fr_mul": {"ms": device_ms(lambda: fr_cuda.fr_mul(a, b), "fr_mul_kernel"),
+                       "plain_ms": cuda_ms(lambda: fr_plain.mul(a, b), reps=3), "bound": mul_bound},
+            "fr_fft": {"ms": stage_ms, "plain_ms": fft_plain_ms / stages,
+                       "bound": (fft_bound[0] / stages, fft_bound[1]), "launches_a_call": stages,
+                       "transform_ms": stage_ms * stages, "transform_plain_ms": fft_plain_ms,
+                       "transform_bound_ms": fft_bound[0]},
+        }
+        for name, r in recs.items():
+            bound, bound_by = r.pop("bound")
+            out.setdefault(name, {"max_abs_err": errs[name], "library_ms": None, "by_size": {}})["by_size"][m] = {
+                **r, "bound_ms": bound, "bound_by": bound_by}
+            print(f"[kzg] {name} at {m} elements: {r['ms'] * 1e3:.3f} us a launch on the card; bound "
+                  f"{bound * 1e3:.3f} us ({bound_by}); plain {r['plain_ms']:.3f} ms"
+                  + (f"; a transform of {stages} launches {r['transform_ms'] * 1e3:.2f} us, bound "
+                     f"{r['transform_bound_ms'] * 1e3:.3f} us, plain {fft_plain_ms:.3f} ms" if name == "fr_fft" else ""),
+                  flush=True)
+    for name, r in out.items():  # the record at the main path's size, the blob's
+        keys = ("ms", "plain_ms", "bound_ms", "bound_by") + (("transform_ms",) if name == "fr_fft" else ())
+        r.update({k: r["by_size"][n][k] for k in keys}, elements=n, sass=sass)
+    return out
+
+
+def _timed_call(fn) -> tuple:
+    """(result or the AssertionError raised, wall s, device s, K3-K9
+    launches) of one KZG entry point on the card."""
+    bls_torch.reset_stage_seconds()
+    before = dict(fq_cuda.launches)
+    t0 = time.perf_counter()
+    try:
+        result = fn()
+    except AssertionError as e:
+        result = e
+    wall = time.perf_counter() - t0
+    launches = {k: fq_cuda.launches[k] - before[k] for k in fq_cuda.KERNELS}
+    return result, wall, sum(bls_torch.stage_seconds.values()), launches
+
+
+def _batch_record(label: str, rows: int, fixture_s: float, wall: float, device_s: float, launches: dict) -> dict:
+    require(launches == PAIRING_CALL_LAUNCHES,
+            f"{label}: the pairing call made {launches} launches, not {PAIRING_CALL_LAUNCHES}")
+    rec = {"rows": rows, "fixture_s": fixture_s, "wall_s": wall, "device_s": device_s,
+           "host_s": wall - device_s, "rows_per_s": rows / wall, "launches": launches}
+    print(f"[kzg] {label}: {rows} rows, fixtures {fixture_s:.2f}s on the host; the call {wall:.2f}s "
+          f"({wall - device_s:.2f}s host row-building, {device_s:.3f}s on the card: Miller loop and final "
+          f"exponentiation), {rec['rows_per_s']:.1f} rows/s; PAIRING_CALL_LAUNCHES", flush=True)
+    return rec
+
+
+def add_counts(counts: dict, launches: dict) -> dict:
+    return {"launches": {k: counts["launches"].get(k, 0) + launches.get(k, 0)
+                         for k in set(counts["launches"]) | set(launches)}}
+
+
+def _named_rows(error) -> list:
+    require(isinstance(error, AssertionError), f"the batch was accepted: {error!r}")
+    return [int(v) for v in re.search(r"\[([0-9, ]*)\]", str(error)).group(1).split(",") if v.strip()]
+
+
+def kzg_phase(report: dict, card: "Card", seed: int) -> dict:
+    """Phase 10: the R&D forks on the card. Returns the main path's counts
+    (K11/K12 from the FFT entry points, K3-K9 from the pairing calls)."""
+    rng = np.random.default_rng([seed, 14])
+    mainnet = preset_for("mainnet", ["phase0", "altair", "bellatrix", "sharding", "eip4844"])
+    spec = build_spec("sharding", "minimal")
+    size, pps = int(spec.KZG_SETUP_SIZE), int(spec.POINTS_PER_SAMPLE)
+    blob = mainnet["MAX_SAMPLES_PER_BLOCK"] * pps
+    out: dict = {}
+
+    # the FFT entry points, Python ints in and out, each against the host oracle
+    values = fr_ints(blob, rng)
+    fr_cuda.reset_counters()
+    t0 = time.perf_counter()
+    forward = fft_torch.fft_device(values)
+    inverse = fft_torch.fft_device(values, inverse=True)
+    extension = fft_torch.das_fft_extension_device(values)
+    torch.cuda.synchronize()
+    fft_s = time.perf_counter() - t0
+    fr_launches = {k: dict(fr_cuda.sizes[k]) for k in fr_cuda.KERNELS}
+    counts = {"launches": dict(fr_cuda.launches)}
+    t0 = time.perf_counter()
+    require(forward == fr.fft(values), f"fft_device disagrees with crypto/fr.fft at {blob}")
+    require(inverse == fr.fft(values, inv=True), f"fft_device (inverse) disagrees with crypto/fr.fft at {blob}")
+    require(extension == fr.das_fft_extension(values), f"das_fft_extension_device disagrees with the host at {blob}")
+    host_s = time.perf_counter() - t0
+    stages = blob.bit_length() - 1  # K11 launches a stage: log2 n a transform
+    require(fr_launches == {"fr_fft": {blob: 3 * stages, 2 * blob: stages + 1}, "fr_mul": {blob: 6}},
+            f"the FFT entry points launched {fr_launches}")
+    out["fft"] = {"n": blob, "card_s": fft_s, "host_oracle_s": host_s, "launches": fr_launches}
+    print(f"[kzg] fft_device forward and inverse and das_fft_extension_device at {blob} points on the card in "
+          f"{fft_s:.3f}s (K11 {fr_launches['fr_fft']}, K12 {fr_launches['fr_mul']}), equal to crypto/fr's "
+          f"({host_s:.2f}s on the host)", flush=True)
+    out["kernels"] = fr_kernel_checks(card, rng, [blob, 2 * blob])
+
+    # the pairing batches: every row's verdict exact, one pairing call each
+    bls_torch.use_device()
+    t0 = time.perf_counter()
+    setup = kzg.insecure_setup(size)
+    spec.G2_SETUP[0]  # the spec's lazy setup: the same cached one
+    out["setup_s"] = time.perf_counter() - t0
+    bad_bytes = harness.off_curve_g1_bytes()
+
+    n_rows = mainnet["MAX_SHARD_HEADERS_PER_SHARD"] * mainnet["INITIAL_ACTIVE_SHARDS"]
+    picks = [int(i) for i in rng.permutation(n_rows)[: KZG_TAMPERED + KZG_MALFORMED]]
+    tampered, malformed = set(picks[:KZG_TAMPERED]), picks[KZG_TAMPERED:]
+    t0 = time.perf_counter()
+    summaries = []
+    for i in range(n_rows):
+        count = int(rng.integers(1, size // pps + (0 if i in tampered else 1)))  # tampered: room for count + 1
+        coeffs = harness.random_polynomial(rng, count * pps)
+        commitment = bad_bytes if i == malformed[0] else harness.kzg_commitment(coeffs)
+        proof = harness.degree_proof(coeffs, (count + (i in tampered)) * pps, size)
+        data_commitment = spec.DataCommitment(point=commitment, samples_count=count)
+        summaries.append(spec.ShardBlobBodySummary(commitment=data_commitment,
+                                                   degree_proof=bad_bytes if i == malformed[1] else proof))
+    fixture_s = time.perf_counter() - t0
+    result, wall, device_s, launches = _timed_call(lambda: spec.verify_degree_proofs(summaries))
+    named = _named_rows(result)
+    require(named == sorted(picks), f"verify_degree_proofs named rows {named}, not {sorted(picks)}")
+    out["degree_proofs"] = {**_batch_record(f"sharding verify_degree_proofs, {KZG_TAMPERED} tampered and "
+                                            f"{KZG_MALFORMED} malformed named exactly", n_rows, fixture_s, wall,
+                                            device_s, launches), "named": named}
+    counts = add_counts(counts, launches)
+
+    blobs = mainnet["MAX_BLOBS_PER_BLOCK"]
+    t0 = time.perf_counter()
+    cs, ws, xs, ys = [], [], [], []
+    for b_i in range(blobs):
+        coeffs = harness.random_polynomial(rng, 1 if b_i == 0 else size)  # blob 0 constant: infinity proofs
+        commitment = harness.kzg_commitment(coeffs)
+        for _ in range(pps):
+            x = fr_ints(1, rng)[0]
+            y, proof = harness.kzg_single_proof(coeffs, x)
+            cs.append(commitment), ws.append(proof), xs.append(x), ys.append(y)
+    n_single = len(cs)
+    picks = [int(i) for i in rng.permutation(n_single)[: KZG_TAMPERED + KZG_MALFORMED]]
+    for i in picks[:KZG_TAMPERED]:
+        ys[i] = (ys[i] + 1) % fr.MODULUS
+    cs[picks[KZG_TAMPERED]], ws[picks[KZG_TAMPERED + 1]] = bad_bytes, bad_bytes
+    fixture_s = time.perf_counter() - t0
+    mask, wall, device_s, launches = _timed_call(lambda: kzg_torch.verify_kzg_proof_batch(cs, ws, xs, ys, setup))
+    want = [i not in picks for i in range(n_single)]
+    require(list(mask) == want, f"verify_kzg_proof_batch: rows {[i for i, v in enumerate(mask) if not v]} False, "
+                                f"not {sorted(picks)}")
+    out["single"] = _batch_record(f"verify_kzg_proof_batch ({blobs} blobs x {pps} points, {KZG_TAMPERED} wrong y, "
+                                  f"{KZG_MALFORMED} malformed, one constant blob's {pps} infinity proofs resolved on "
+                                  f"the host), mask exact", n_single, fixture_s, wall, device_s, launches)
+    counts = add_counts(counts, launches)
+    single_rows = (next(i for i in range(pps, n_single) if want[i]), picks[0])
+
+    t0 = time.perf_counter()
+    w_m = fr.root_of_unity(pps)
+    c_cs, c_ws, c_x0s, c_yss = [], [], [], []
+    for _ in range(KZG_COSET_ROWS):
+        coeffs = harness.random_polynomial(rng, size)
+        x0 = fr_ints(1, rng)[0]
+        yv, proof = harness.kzg_coset_proof(coeffs, [x0 * pow(w_m, j, fr.MODULUS) % fr.MODULUS for j in range(pps)])
+        c_cs.append(harness.kzg_commitment(coeffs)), c_ws.append(proof), c_x0s.append(x0), c_yss.append(yv)
+    bad_cosets = [int(i) for i in rng.permutation(KZG_COSET_ROWS)[:KZG_COSET_TAMPERED]]
+    for i in bad_cosets:
+        c_yss[i][3] = (c_yss[i][3] + 1) % fr.MODULUS
+    fixture_s = time.perf_counter() - t0
+    mask, wall, device_s, launches = _timed_call(
+        lambda: kzg_torch.check_multi_kzg_proof_batch(c_cs, c_ws, c_x0s, c_yss, setup))
+    want = [i not in bad_cosets for i in range(KZG_COSET_ROWS)]
+    require(list(mask) == want, f"check_multi_kzg_proof_batch: mask {list(mask)} not {want}")
+    out["coset"] = _batch_record(f"check_multi_kzg_proof_batch (m = {pps}, {KZG_COSET_TAMPERED} tampered), mask exact",
+                                 KZG_COSET_ROWS, fixture_s, wall, device_s, launches)
+    counts = add_counts(counts, launches)
+
+    das = build_spec("das", "minimal")
+    t0 = time.perf_counter()
+    extended = das.extend_data(fr_ints(DAS_BLOB_POINTS, rng))
+    samples = das.sample_data(3, 1, extended)
+    poly = das.ifft(das.reverse_bit_order_list(extended))
+    commitment = das.DataCommitment(point=das.commit_to_data(poly), samples_count=len(samples))
+    fixture_s = time.perf_counter() - t0
+    result, wall, device_s, launches = _timed_call(lambda: das.verify_samples(samples, len(samples), commitment))
+    require(result is None, f"das verify_samples rejected untampered samples: {result!r}")
+    out["das"] = _batch_record(f"das sample_data -> verify_samples, {len(samples)} samples of a "
+                               f"{DAS_BLOB_POINTS}-point blob", len(samples), fixture_s, wall, device_s, launches)
+    counts = add_counts(counts, launches)
+    bad = samples[2].copy()
+    bad.data[0] = (int(bad.data[0]) + 1) % fr.MODULUS
+    result, wall, device_s, launches = _timed_call(
+        lambda: das.verify_samples(samples[:2] + [bad] + samples[3:], len(samples), commitment))
+    require(_named_rows(result) == [2], f"das verify_samples named {result}, not the tampered sample 2")
+    out["das_tampered"] = _batch_record("das verify_samples, sample 2 tampered: named exactly", len(samples), 0.0,
+                                        wall, device_s, launches)
+    counts = add_counts(counts, launches)
+
+    # the host oracle decides one valid and one tampered row of each batch the same
+    t0 = time.perf_counter()
+    for i in single_rows:
+        require(kzg.verify_single(cs[i], ws[i], xs[i], ys[i], setup) == (i not in picks),
+                f"crypto/kzg.verify_single disagrees on single row {i}")
+    for i in (next(i for i in range(KZG_COSET_ROWS) if i not in bad_cosets), bad_cosets[0]):
+        require(kzg.check_multi_kzg_proof(c_cs[i], c_ws[i], c_x0s[i], c_yss[i], setup) == (i not in bad_cosets),
+                f"crypto/kzg.check_multi_kzg_proof disagrees on coset row {i}")
+    for i in (next(i for i in range(n_rows) if i not in named), sorted(tampered)[0]):
+        try:
+            spec.verify_degree_proof(summaries[i])
+            held = True
+        except AssertionError:
+            held = False
+        require(held == (i not in named), f"the spec's scalar verify_degree_proof disagrees on row {i}")
+    out["oracle_s"] = time.perf_counter() - t0
+    print(f"[kzg] host oracle (verify_single, check_multi_kzg_proof, the spec's verify_degree_proof) agrees on a "
+          f"valid and a tampered row of each batch ({out['oracle_s']:.2f}s)", flush=True)
+    report["kzg"] = out
+    return counts
+
+
+
 def kernel_records(report: dict, main_counts: tuple) -> list:
     """The kernels line: each kernel of the main path with its launches
     there (summed over ``main_counts``, each a phase's ``{"launches": ...}``),
@@ -1756,18 +1941,21 @@ def kernel_records(report: dict, main_counts: tuple) -> list:
         ("g2_mul_static", LADDER_REPLACES, CURVE_SOURCE),
         ("fq_inv", INV_REPLACES, FQ_INV_SOURCE),
         ("flag_deltas", FLAG_DELTAS_REPLACES, FLAG_DELTAS_SOURCE),
+        ("fr_fft", FR_FFT_REPLACES, FR_SOURCE),
+        ("fr_mul", FR_MUL_REPLACES, FR_SOURCE),
         ("add_one", "tools/pallas_probe.py:46", PROBE_SOURCE),
     ):
         if name == "add_one":
             k, launches = report["probe"], report["probe"]["launches"]
+        elif name in fr_cuda.KERNELS:
+            k = report["kzg"]["kernels"][name]
+            launches = sum(c["launches"].get(name, 0) for c in main_counts)
         elif name == "flag_deltas":
             k = report["flag_deltas"]
             launches = sum(c["launches"].get(name, 0) for c in main_counts)
         else:
             if name in fq_cuda.KERNELS:
-                timing = report["ladder_timing" if name in LADDER else "pow_timing" if name in POW else
-                                "inv_timing" if name == "fq_inv" else "fq_timing"]
-                k = {**timing[name], "max_abs_err": report["fq_checks"][name]}
+                k = {**report["timing"][name], "max_abs_err": report["fq_checks"][name]}
             else:
                 k = report["kernels"][name]
             launches = sum(c["launches"].get(name, 0) for c in main_counts)
@@ -1776,16 +1964,14 @@ def kernel_records(report: dict, main_counts: tuple) -> list:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-            "library_ms": k["library_ms"], **({"elements": k["elements"]} if name in fq_cuda.KERNELS else {}),
+            "library_ms": k["library_ms"],
+            **({"elements": k["elements"]} if name in fq_cuda.KERNELS + fr_cuda.KERNELS else {}),
+            **({"transform_ms": k["transform_ms"]} if name == "fr_fft" else {}),
             **({"rows": k["rows"], "call_ms": k["call_ms"]} if name == "flag_deltas" else {}),
         }
-        if name in LADDER or name == "fq_inv":  # K7-K9: the latency floor; K5/K6: the chain's latency estimate
-            rec["latency_floor_ms"] = k["latency_floor_ms"]
-        if name in POW:
-            rec["latency_estimate_ms"] = k["latency_estimate_ms"]
         records.append(rec)
-    for name, k in report["fq_timing"].items():
-        if k["measurement_only"]:
+    for name, k in report["timing"].items():
+        if k.get("measurement_only"):
             replaces = "consensus_specs_tpu/ops/fq.py:175" if name.startswith("fq_mul") else \
                 "consensus_specs_tpu/ops/fq.py:115"
             records.append({
@@ -1826,11 +2012,14 @@ def main() -> int:
     n_blocks = (args.validators + 255) // 256
     k2_rows = spec.SHUFFLE_ROUND_COUNT * (1 + n_blocks)  # the shuffle's one sha256_many_small call
     phase_kernels(report, card, args.seed, k2_rows)
-    phase_fq_kernels(report, args.seed, FQ_SIZES, "an Fq12 product of 128 Miller loops, a decode")
-    phase_pow_kernels(report, args.seed, {name: POW_SIZES for name in POW}, "1, a flush's 260, a decode's 16,385")
-    phase_inv_kernels(report, args.seed, POW_SIZES, "1, a flush's 260, a decode's 16,385")
-    phase_ladder_kernels(report, args.seed, {name: LADDER_SIZES for name in LADDER},
-                         "1, a flush's 130 and 260, a decode's 16,385")
+    checked = {"fq": sorted(set(FQ_SIZES) | set(FLUSH_SIZES["fq"])),
+               **{name: sorted(set(POW_SIZES) | set(FLUSH_SIZES[name])) for name in (*POW, "fq_inv")},
+               **{name: sorted(set(LADDER_SIZES) | set(FLUSH_SIZES[name])) for name in LADDER}}
+    label = "1, 130, 260, a decode's 16,385 and the flushes' sizes"
+    phase_fq_kernels(report, args.seed, checked["fq"], label)
+    phase_pow_kernels(report, args.seed, {name: checked[name] for name in POW}, label)
+    phase_inv_kernels(report, args.seed, checked["fq_inv"], label)
+    phase_ladder_kernels(report, args.seed, {name: checked[name] for name in LADDER}, label)
     done("kernel checks")
 
     print("[calibrate]", json.dumps(dev.use_device_hasher(calibrate=True)), flush=True)
@@ -1872,28 +2061,35 @@ def main() -> int:
                 f"the sync calls ran {variants} (altair) and {capella_variants} (capella), not both variants")
     generator_counts, generator_sizes = generators_phase(report)
     done("generators")
+    kzg_counts = kzg_phase(report, card, args.seed)
+    done("kzg")
     phase_flag_deltas(report, card, args.seed, k10_calls)
     done("flag_deltas")
-    # the checks at every size a flush launched (the phase0, altair and
-    # capella flushes) that the kernel checks above did not cover
+    # the checks at every size a flush launched (the phase0, altair, capella
+    # and generator flushes) that the kernel checks above did not cover
     sizes = {k: set(altair_hist[k]) | set(capella_hist[k]) | set(hist[k]) | set(generator_sizes[k])
              for k in fq_cuda.KERNELS}
-    label = "every other size a flush launched"
-    phase_fq_kernels(report, args.seed, sorted((sizes["fq_mul"] | sizes["fq_addsub"]) - set(FQ_SIZES)), label)
-    phase_pow_kernels(report, args.seed, {name: sorted(sizes[name] - set(POW_SIZES)) for name in POW}, label)
-    phase_inv_kernels(report, args.seed, sorted(sizes["fq_inv"] - set(POW_SIZES)), label)
-    phase_ladder_kernels(report, args.seed, {name: sorted(sizes[name] - set(LADDER_SIZES)) for name in LADDER}, label)
+    missing = {"fq": sorted((sizes["fq_mul"] | sizes["fq_addsub"]) - set(checked["fq"])),
+               **{name: sorted(sizes[name] - set(checked[name])) for name in (*POW, "fq_inv", *LADDER)}}
+    report["flush_sizes_unchecked_before"] = missing
+    if any(missing.values()):
+        label = "every other size a flush launched"
+        phase_fq_kernels(report, args.seed, missing["fq"], label)
+        phase_pow_kernels(report, args.seed, {name: missing[name] for name in POW}, label)
+        phase_inv_kernels(report, args.seed, missing["fq_inv"], label)
+        phase_ladder_kernels(report, args.seed, {name: missing[name] for name in LADDER}, label)
+    print(f"[kernels] every size the flushes launched K3-K9 at was checked before them, but {missing}", flush=True)
     done("kernel checks at the flush sizes")
-    phase_fq_timing(report, card, args.seed, hist)
-    phase_pow_timing(report, card, args.seed, hist)
-    phase_inv_timing(report, card, args.seed, hist)
-    phase_ladder_timing(report, card, args.seed, hist)
+    phase_timing(report, card, args.seed, hist)
+    # the flush's histogram, for kernel_turns.py's timings in turns
+    FLUSH_RECORD.parent.mkdir(parents=True, exist_ok=True)
+    FLUSH_RECORD.write_text(json.dumps({"hist": hist, "card": report["env"]["card"]}, default=str))
     done("timing")
     report["total_s"] = time.perf_counter() - t_start
     print(f"[phases] seconds: { {k: round(v, 1) for k, v in report['phase_s'].items()} }", flush=True)
 
     records = kernel_records(report, (root_counts, transition_counts, bls_counts, altair_counts, capella_counts,
-                                      generator_counts))
+                                      generator_counts, kzg_counts))
     print("[report]", json.dumps(report, default=str))
     print(json.dumps({
         "kernels": records,
@@ -1913,6 +2109,7 @@ def main() -> int:
         "generator_card_s": report["generators"]["card"]["operations_s"] + report["generators"]["card"]["ssz_static_s"],
         "generator_host_s": report["generators"]["host"]["operations_s"] + report["generators"]["host"]["ssz_static_s"],
         "generator_flush_s": report["generators"]["card"]["flush"]["seconds"],
+        "kzg_rows_per_s": {k: report["kzg"][k]["rows_per_s"] for k in ("degree_proofs", "single", "coset")},
         "total_s": report["total_s"],
     }))
     print(report["env"]["card"])

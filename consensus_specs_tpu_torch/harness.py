@@ -14,8 +14,10 @@ slot attesting (altair and later: and the sync committee's aggregate;
 bellatrix and later: an empty execution payload, on capella carrying the
 expected withdrawals; capella: signed BLS-to-execution changes), and that
 block with its ``state_root`` filled in; participation columns drawn from a
-seed; and a runner that applies a block with its signature checks deferred
-into one batched flush (the vector generator's ``--bls-defer`` pattern).
+seed; a runner that applies a block with its signature checks deferred
+into one batched flush (the vector generator's ``--bls-defer`` pattern);
+and, for the R&D forks, KZG commitments and proofs made from the
+development setup's public secret.
 
 Keys follow the test framework's convention, privkey(i) = i + 1, so
 pubkey(i) = (i + 1) G1. ``pubkeys(n)`` derives them at registry scale by
@@ -41,9 +43,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .crypto import bls
+from .crypto import bls, fr, kzg
 from .crypto.bls import ciphersuite
-from .crypto.bls.curve import G1_X, G1_Y
+from .crypto.bls.curve import G1_X, G1_Y, DeserializationError, g1_from_bytes, g1_generator, g1_to_bytes
 from .crypto.bls.fields import P, R
 from .test_framework.execution_payload import build_empty_execution_payload, get_execution_payload_header
 
@@ -465,3 +467,73 @@ def apply_block_deferred(spec, state, signed_block, pre_state=None, verifier=Non
             spec.state_transition(pre_state, signed_block, validate_result=True)
         raise AssertionError("a signature check failed, but the replayed transition accepted the block")
     raise AssertionError(f"{verifier.results[start:].count(False)} signature check(s) failed")
+
+
+# -- KZG fixtures (the R&D forks) ----------------------------------------------
+#
+# Commitments and proofs from the development setup's public secret s
+# (crypto/kzg._INSECURE_SECRET), one G1 scalar multiplication each: the same
+# points that crypto/kzg's commit / open_single / open_multi build with a
+# whole MSM over [s^i]G1, since that MSM is [p(s)]G1 for any polynomial p.
+
+def _g1_at(value: int) -> bytes:
+    return g1_to_bytes(g1_generator().mul(value % fr.MODULUS))
+
+
+def kzg_secret() -> int:
+    return kzg._INSECURE_SECRET
+
+
+def random_polynomial(rng: np.random.Generator, degree_bound: int) -> list:
+    """``degree_bound`` random coefficients of Fr, lowest first."""
+    return [int.from_bytes(rng.bytes(32), "big") % fr.MODULUS for _ in range(degree_bound)]
+
+
+def kzg_commitment(coeffs) -> bytes:
+    """[p(s)]G1: ``kzg.commit(coeffs, setup)``'s bytes."""
+    return _g1_at(fr.poly_eval(coeffs, kzg_secret()))
+
+
+def kzg_single_proof(coeffs, x: int) -> tuple:
+    """(y, proof) with y = p(x) and proof [(p(s) - y) / (s - x)]G1:
+    ``kzg.open_single(coeffs, x, setup)``."""
+    s, x = kzg_secret(), x % fr.MODULUS
+    assert x != s, "the opened point is the setup's secret"
+    y = fr.poly_eval(coeffs, x)
+    return y, _g1_at((fr.poly_eval(coeffs, s) - y) * pow(s - x, fr.MODULUS - 2, fr.MODULUS))
+
+
+def kzg_coset_proof(coeffs, xs) -> tuple:
+    """(ys, proof) opening p at every x of ``xs``: proof [(p(s) - I(s)) /
+    Z(s)]G1, I interpolating (xs, ys) and Z vanishing on xs:
+    ``kzg.open_multi(coeffs, xs, setup)``."""
+    s = kzg_secret()
+    ys = [fr.poly_eval(coeffs, x) for x in xs]
+    z = 1
+    for x in xs:
+        z = z * (s - x) % fr.MODULUS
+    assert z != 0, "the setup's secret is in the opened domain"
+    i_at_s = fr.poly_eval(fr.interpolate_on_domain(list(xs), ys), s)
+    return ys, _g1_at((fr.poly_eval(coeffs, s) - i_at_s) * pow(z, fr.MODULUS - 2, fr.MODULUS))
+
+
+def degree_proof(coeffs, points_count: int, setup_size: int) -> bytes:
+    """The sharding degree proof of a polynomial B of fewer than
+    ``points_count`` coefficients: [B(s) s^(setup_size - points_count)]G1,
+    which pairs with G2_SETUP[-points_count] as the commitment does with
+    G2_SETUP[0] (specs/sharding.py ``verify_degree_proof``)."""
+    s = kzg_secret()
+    return _g1_at(fr.poly_eval(coeffs, s) * pow(s, setup_size - points_count, fr.MODULUS))
+
+
+def off_curve_g1_bytes(start: int = 1) -> bytes:
+    """A compressed G1 encoding, flags valid and x below p, whose x is no
+    point's: x^3 + 4 is not a square (the first such x from ``start``)."""
+    x = start
+    while True:
+        data = bytes([0x80 | (x >> 376)]) + (x % (1 << 376)).to_bytes(47, "big")
+        try:
+            g1_from_bytes(data)
+        except DeserializationError:
+            return data
+        x += 1

@@ -306,6 +306,64 @@ def _verify_on_device(pubkey_lists, message_lists, signatures, aggregate: bool) 
     return out
 
 
+# -- generic pairing checks: lists of pairs whose pairing product must be 1 ------
+#
+# A "check" is a list of pairs [(g1_limbs | None, g2_limbs | "inf")], each
+# side affine Montgomery limbs (numpy): G1 (x, y) of (32,), G2 (x, y) of
+# (2, 32). None in a pair's G1 slot means the negated generator; an "inf"
+# G2 leaves the pair inactive (it contributes 1). A check of None is
+# statically False (malformed input, never sent to the device). The KZG
+# verifiers (ops/kzg_torch.py) build their rows as such checks.
+
+_CPU_MAX_ROWS = 8  # on the CPU the plain versions cost by row
+
+
+def _pack_checks(checks):
+    """Checks of at least one pair packed into (len, max pairs) limb arrays
+    for ``pairing_torch``: (px, py, qx, qy, active). Pad pairs are the
+    negated generator, inactive."""
+    b, k = len(checks), max(len(c) for c in checks)
+    gx, gy = _neg_g1_limbs()
+    px = np.tile(gx, (b, k, 1))
+    py = np.tile(gy, (b, k, 1))
+    qx = np.zeros((b, k, 2, fq.N_LIMBS), dtype=np.int32)
+    qy = np.zeros((b, k, 2, fq.N_LIMBS), dtype=np.int32)
+    active = np.zeros((b, k), dtype=bool)
+    for row, check in enumerate(checks):
+        for col, (p, q) in enumerate(check):
+            if p is not None:
+                px[row, col] = p[0]
+                py[row, col] = p[1]
+            if isinstance(q, str) and q == "inf":
+                continue  # the pair contributes 1: left inactive
+            qx[row, col] = q[0]
+            qy[row, col] = q[1]
+            active[row, col] = True
+    return px, py, qx, qy, active
+
+
+def run_checks(checks) -> np.ndarray:
+    """One bool a check: its pairing product is 1. The live checks go to the
+    device in calls of at most ``cold_shape_floors()[0]`` rows on the card
+    (a call's launches do not depend on its rows, so a full block's 256
+    shard headers are one call) and 8 on the CPU, each a batched Miller
+    loop and fast final exponentiation (``pairing_torch``), timed in
+    ``stage_seconds`` under "miller_loop" and "final_exponentiation"."""
+    out = np.zeros(len(checks), dtype=bool)
+    live = [i for i, c in enumerate(checks) if c is not None and len(c) > 0]
+    dev = device()
+    cap = cold_shape_floors()[0] if dev.type == "cuda" else _CPU_MAX_ROWS
+    for start in range(0, len(live), cap):
+        sub = live[start : start + cap]
+        px, py, qx, qy, active = (torch.from_numpy(a).to(dev) for a in _pack_checks([checks[i] for i in sub]))
+        with _Stage("miller_loop", dev):
+            f = pairing_torch.miller_reduce(px, py, qx, qy, active)
+        with _Stage("final_exponentiation", dev):
+            ok = tower.fq12_is_one(pairing_torch.final_exponentiation_fast(f)).cpu().tolist()
+        out[sub] = ok
+    return out
+
+
 # -- the API (crypto/bls/ciphersuite.py parity): every call is the device pipeline --
 
 def fast_aggregate_verify_batch(pubkey_lists, messages, signatures) -> np.ndarray:

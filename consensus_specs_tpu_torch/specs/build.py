@@ -8,7 +8,8 @@ references late-bind to the final namespace — the same semantics the
 reference gets by emitting one flat module per (fork, preset).
 
 This package carries the production forks phase0, altair, bellatrix and
-capella; the R&D forks that branch off bellatrix come with later slices.
+capella, and the R&D forks that branch off bellatrix: sharding, with
+custody_game and das on it, and eip4844.
 Built modules register as ``consensus_specs_tpu_torch.specs.<fork>_<preset>``
 so they never collide in ``sys.modules`` with the JAX package's modules of
 the same fork and preset.
@@ -23,6 +24,28 @@ from typing import Any, Dict, Optional, Tuple
 from ..config import config_for, preset_for
 
 FORK_ORDER = ["phase0", "altair", "bellatrix", "capella"]
+
+# R&D forks branch off the production chain rather than extending its tip
+# (ref: setup.py's builder hierarchy — sharding extends bellatrix,
+# custody_game and das extend sharding, eip4844 extends bellatrix)
+RND_FORK_CHAINS = {
+    "sharding": ["phase0", "altair", "bellatrix", "sharding"],
+    "custody_game": ["phase0", "altair", "bellatrix", "sharding", "custody_game"],
+    "das": ["phase0", "altair", "bellatrix", "sharding", "das"],
+    "eip4844": ["phase0", "altair", "bellatrix", "eip4844"],
+}
+
+# Previous fork mapping (linear chain for the production forks)
+PREVIOUS_FORK = {
+    "phase0": None,
+    "altair": "phase0",
+    "bellatrix": "altair",
+    "capella": "bellatrix",
+    "sharding": "bellatrix",
+    "custody_game": "sharding",
+    "das": "sharding",
+    "eip4844": "bellatrix",
+}
 
 _SOURCE_DIR = Path(__file__).resolve().parent
 _cache: Dict[Tuple, types.ModuleType] = {}
@@ -62,9 +85,17 @@ def available_forks():
     return [f for f in FORK_ORDER if (_SOURCE_DIR / f"{f}.py").exists()]
 
 
+def available_rnd_forks():
+    """R&D branch forks with spec sources — selectable only by explicit
+    name, never by generators."""
+    return [f for f in RND_FORK_CHAINS if (_SOURCE_DIR / f"{f}.py").exists()]
+
+
 def _fork_chain(fork: str):
+    if fork in RND_FORK_CHAINS:
+        return RND_FORK_CHAINS[fork]
     if fork not in FORK_ORDER:
-        raise ValueError(f"unknown fork {fork!r} (have {FORK_ORDER})")
+        raise ValueError(f"unknown fork {fork!r} (have {FORK_ORDER + sorted(RND_FORK_CHAINS)})")
     return FORK_ORDER[: FORK_ORDER.index(fork) + 1]
 
 

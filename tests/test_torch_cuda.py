@@ -1,10 +1,11 @@
 """The port's kernels on the card — SHA-256 (K1/K2), the base field
 (K3 fq_mul, K4 fq_addsub), the pow chains (K5 fq_pow, K6 fq2_pow), the
 static scalar ladders (K7 g1_mul_static, K8 g2_mul_static), the inversion
-(K9 fq_inv), the engine's flag deltas (K10 flag_deltas) and the liveness
-probe — held against their plain PyTorch versions, hashlib and Python
-integers, and the Verify
-family on the card (scalar and batched) against the host oracle. These need
+(K9 fq_inv), the engine's flag deltas (K10 flag_deltas), the Fr transform
+and product (K11 fr_fft, K12 fr_mul) and the liveness probe — held against
+their plain PyTorch versions, hashlib and Python integers, and the Verify
+family and the KZG verifiers on the card (scalar and batched) against the
+host oracle. These need
 a CUDA card and skip without one; on the card run them with
 
     python3 -m pytest --noconftest -p no:randomly tests/test_torch_cuda.py
@@ -19,7 +20,11 @@ from consensus_specs_tpu_torch import engine, probe
 from consensus_specs_tpu_torch.crypto.bls import ciphersuite as host
 from consensus_specs_tpu_torch.engine import delta_checks as dc
 from consensus_specs_tpu_torch.engine import ops_torch, stages
-from consensus_specs_tpu_torch.ops import bls_torch, fq, fq_cuda, fq_plain, tower
+from consensus_specs_tpu_torch import harness
+from consensus_specs_tpu_torch.crypto import fr as host_fr
+from consensus_specs_tpu_torch.crypto import kzg
+from consensus_specs_tpu_torch.ops import bls_torch, fft_torch, fq, fq_cuda, fq_plain, fr_cuda, fr_plain, kzg_torch
+from consensus_specs_tpu_torch.ops import tower
 from consensus_specs_tpu_torch.ops import curve_torch as cj
 from consensus_specs_tpu_torch.ops import ladder_checks as lc
 from consensus_specs_tpu_torch.ops import sha256 as tdev
@@ -367,3 +372,63 @@ def test_engine_torch_backend_launches_the_kernel(card):
     finally:
         engine.use_backend("numpy")
     assert all(np.array_equal(a, b) for a, b in zip(got, want))
+
+
+FR = fr_plain.P_INT
+
+
+def _fr_limbs(card, ints):
+    return torch.from_numpy(fr_plain.to_limbs(ints)).to(card)
+
+
+@pytest.mark.parametrize("op", [fr_cuda.OP_MUL, fr_cuda.OP_ADD, fr_cuda.OP_SUB], ids=["mul", "add", "sub"])
+@pytest.mark.parametrize("n", [1, 31, 16384])
+def test_fr_mul_kernel_matches_plain_version(card, n, op):
+    rng = np.random.default_rng([n, op])
+    edges = [(x, y) for x in (0, 1, FR - 1) for y in (0, 1, FR - 1)] if n >= 9 else []
+    pairs = [tuple(int.from_bytes(rng.bytes(32), "big") % FR for _ in range(2)) for _ in range(n - len(edges))] + edges
+    a, b = _fr_limbs(card, [x for x, _ in pairs]), _fr_limbs(card, [y for _, y in pairs])
+    plain = {fr_cuda.OP_MUL: fr_plain.mul, fr_cuda.OP_ADD: fr_plain.add, fr_cuda.OP_SUB: fr_plain.sub}[op]
+    before = fr_cuda.launches["fr_mul"]
+    got = fr_cuda.fr_mul(a, b, op)
+    torch.cuda.synchronize()
+    assert fr_cuda.launches["fr_mul"] == before + 1
+    assert torch.equal(got.cpu(), plain(a.cpu(), b.cpu()))
+    assert torch.equal(fr_cuda.fr_mul(a[:1], b, op).cpu(), plain(a[:1].cpu(), b.cpu()))
+
+
+@pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])
+@pytest.mark.parametrize("n", [2, 4, 1024, 32768])
+def test_fr_fft_kernel_matches_plain_version(card, n, inverse):
+    rng = np.random.default_rng(n)
+    x = fr_plain.to_mont(_fr_limbs(card, [int.from_bytes(rng.bytes(32), "big") % FR for _ in range(n)]))
+    before = fr_cuda.launches["fr_fft"]
+    got = fr_cuda.fr_fft(x, n, inverse)
+    torch.cuda.synchronize()
+    assert fr_cuda.launches["fr_fft"] == before + n.bit_length() - 1  # one launch a stage
+    assert torch.equal(got, fr_plain.fft(x, n, inverse))
+
+
+def test_fft_entry_points_on_the_card(card):
+    rng = np.random.default_rng(5)
+    values = [int.from_bytes(rng.bytes(32), "big") % FR for _ in range(256)]
+    assert fft_torch.fft_device(values) == host_fr.fft(values)
+    assert fft_torch.fft_device(values, inverse=True) == host_fr.fft(values, inv=True)
+    assert fft_torch.das_fft_extension_device(values) == host_fr.das_fft_extension(values)
+
+
+def test_kzg_verifiers_on_the_card(card):
+    setup = kzg.insecure_setup(64)
+    rng = np.random.default_rng(6)
+    coeffs = [harness.random_polynomial(rng, 64) for _ in range(3)] + [[7]]
+    rows = [(harness.kzg_commitment(c), *harness.kzg_single_proof(c, 1000 + i)[::-1], 1000 + i)
+            for i, c in enumerate(coeffs)]
+    cs, ws, ys, xs = (list(v) for v in zip(*rows))
+    ys[1] = (ys[1] + 1) % FR
+    ws[2] = harness.off_curve_g1_bytes()
+    bls_torch.use_device(card)
+    before = dict(fq_cuda.launches)
+    got = kzg_torch.verify_kzg_proof_batch(cs, ws, xs, ys, setup)
+    assert got.tolist() == [True, False, False, True]
+    assert got.tolist()[:2] == [kzg.verify_single(c, w, x, y, setup) for c, w, x, y in zip(cs, ws, xs, ys)][:2]
+    assert fq_cuda.launches["fq_inv"] == before["fq_inv"] + 1  # one pairing call

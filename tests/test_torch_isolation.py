@@ -13,7 +13,7 @@ import consensus_specs_tpu_torch
 from consensus_specs_tpu_torch import engine, probe
 from consensus_specs_tpu_torch.crypto import bls
 from consensus_specs_tpu_torch.engine import delta_checks, ops_torch
-from consensus_specs_tpu_torch.ops import bls_torch, fq_cuda, h2c_torch
+from consensus_specs_tpu_torch.ops import bls_torch, fft_torch, fq_cuda, fr_cuda, h2c_torch
 from consensus_specs_tpu_torch.ops import sha256 as tdev
 from consensus_specs_tpu_torch.ops import sha256_cuda
 
@@ -45,6 +45,8 @@ def test_importing_the_port_loads_neither():
         "from consensus_specs_tpu_torch.ops import sha256, sha256_cuda, sha256_plain\n"
         "from consensus_specs_tpu_torch.ops import fq, fq_cuda, fq_plain, tower, curve_torch, h2c_torch\n"
         "from consensus_specs_tpu_torch.ops import pairing_torch, bls_torch, ladder_checks\n"
+        "from consensus_specs_tpu_torch.ops import fft_torch, fr_cuda, fr_plain, kzg_torch\n"
+        "from consensus_specs_tpu_torch.crypto import fr, kzg\n"
         "from consensus_specs_tpu_torch import probe, sched, engine\n"
         "from consensus_specs_tpu_torch.engine import backend, crosscheck, delta_checks, ops_torch, stages\n"
         "from consensus_specs_tpu_torch.crypto import bls\n"
@@ -62,11 +64,17 @@ def test_importing_the_port_loads_neither():
         "    assert spec.__name__ == f'consensus_specs_tpu_torch.specs.{fork}_minimal', spec.__name__\n"
         "    assert all(engine.stage_status(spec).values()) and spec.process_operations.engine_batched_atts\n"
         "assert engine.stage_status(spec)['process_full_withdrawals']\n"
+        "for fork in ('sharding', 'custody_game', 'das', 'eip4844'):\n"
+        "    spec = build_spec(fork, 'minimal')\n"
+        "    assert spec.__name__ == f'consensus_specs_tpu_torch.specs.{fork}_minimal', spec.__name__\n"
+        "spec = build_spec('eip4844', 'minimal')\n"
+        "spec.blob_to_kzg(spec.Blob([1, 2, 3, 4]))  # the in-function imports of the copied sources\n"
+        "assert fft_torch.fft_device([1, 2, 3, 4], device='cpu') == fr.fft([1, 2, 3, 4])\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in {'jax', 'jaxlib', 'consensus_specs_tpu', 'yaml'})\n"
         "assert not bad, bad\n"
         "assert sha256_cuda._lib is None  # nothing built at import\n"
         "assert fq_cuda._lib is None and fq_cuda._pow_lib is None and fq_cuda._curve_lib is None\n"
-        "assert probe._lib is None and ops_torch._lib is None\n"
+        "assert probe._lib is None and ops_torch._lib is None and fr_cuda._lib is None\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=PACKAGE.parent, capture_output=True, text=True,
                           timeout=120)
@@ -128,6 +136,10 @@ def test_entry_points_default_to_cuda(monkeypatch):
         engine.use_backend("torch")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ops_torch.flag_deltas(*delta_checks.columns(4, 0), *delta_checks.SCALARS[0], False, True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fft_torch.fft_device([1, 2, 3, 4])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fft_torch.das_fft_extension_device([1, 2, 3, 4])
     prev = bls_torch._device
     try:
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -165,5 +177,13 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensor"):
         ops_torch.flag_deltas_cuda(x[0].long(), x[0].bool(), x[0].bool(), 1, 1, 1, 1, 1, False, True)
     assert ops_torch.launches["flag_deltas"] == 0
+    before = dict(fr_cuda.launches)
+    y = torch.zeros((4, 22), dtype=torch.int32)
+    for op in (fr_cuda.OP_MUL, fr_cuda.OP_ADD, fr_cuda.OP_SUB):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            fr_cuda.fr_mul(y, y, op)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fr_cuda.fr_fft(y, 4)
+    assert fr_cuda.launches == before
     # the probe's wrapper takes its plain version for a CPU tensor, and counts no launch
     assert torch.equal(probe.add_one(x), x + 1) and probe.launches["add_one"] == 0
