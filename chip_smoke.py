@@ -115,9 +115,12 @@ Phases, each raising on any mismatch:
    forward and inverse, ``das_fft_extension_device``) at a mainnet DAS blob
    of 16,384 points on K11 fr_fft and K12 fr_mul, equal to crypto/fr.py's;
    K12 (each op, with the edge values 0, 1, r - 1) and K11 (forward and
-   inverse at 16,384 and 32,768, the das extension at 16,384) bit-exact
-   against their plain versions on the card, timed beside their bounds
-   (their SASS per pipe, or bytes). Then the KZG verifiers on the pairing
+   inverse at 16,384 and 32,768, at one pass, a short last pass and three
+   passes, the das extension at 16,384) bit-exact against their plain
+   versions on the card, timed beside their bounds (SASS per pipe, or
+   bytes; K11's work counted as the butterflies of its earlier kernel of
+   one launch a stage or as its own SASS, whichever is less). Then the
+   KZG verifiers on the pairing
    pipeline (``bls_torch.run_checks``), at mainnet's widths on the minimal
    preset's 64-power development setup, fixtures from its public secret:
    the sharding spec's ``verify_degree_proofs`` on 256 body summaries (a
@@ -1628,9 +1631,22 @@ def generators_phase(report: dict) -> tuple:
 FR_SOURCE = "consensus_specs_tpu_torch/ops/csrc/fr_fft.cu"
 FR_FFT_REPLACES = "consensus_specs_tpu/ops/fft_jax.py:196"
 FR_MUL_REPLACES = "consensus_specs_tpu/ops/fft_jax.py:136"
-# the kernels a forward transform and K12's product run, by their mangled names
-FR_SASS = {"fr_mul": "fr_mul_kernelILi0EE", "first": "fr_fft_stage_kernelILb1ELb0ELb0EE",
-           "middle": "fr_fft_stage_kernelILb0ELb0ELb0EE", "last": "fr_fft_stage_kernelILb0ELb1ELb0EE"}
+# the kernels a forward transform's passes and K12's product run, by their
+# mangled names ("single": a transform of one pass; K12's product on
+# 16-byte aligned tensors, its tiles copied in 16-byte pieces)
+FR_SASS = {"fr_mul": "fr_mul_kernelILi0ELb1EE", "first": "fr_fft_pass_kernelILb1ELb0ELb0EE",
+           "middle": "fr_fft_pass_kernelILb0ELb0ELb0EE", "last": "fr_fft_pass_kernelILb0ELb1ELb0EE",
+           "single": "fr_fft_pass_kernelILb1ELb1ELb0EE"}
+# K11's work: its earlier kernel, one launch a stage and one thread a
+# butterfly, issued these instructions a butterfly at the first, a middle
+# and the last stage (cuobjdump -sass of its build for sm_90a, counted by
+# sass_pipes on an H100 80GB HBM3; PERF.md §6). A transform's bound is n/2
+# butterflies a stage at these counts, or the pass kernel's own SASS over
+# its passes where that is less: the work, not the kernel's way of doing it.
+FR_STAGE_KERNEL_BUTTERFLY_ISSUE = {"first": 803, "middle": 701, "last": 821}
+# K11's check sizes beyond the main path's: one pass (64), a short last pass
+# with two groups a tile (2,048: 6 + 5 stages), three passes (2^17: 6 + 6 + 5)
+FR_FFT_CHECK_SIZES = (64, 2048, 1 << 17)
 FR_ROW_BYTES, FR_TWIDDLE_BYTES = 4 * fr_plain.N_LIMBS, 4 * fr_cuda.N_WORDS
 KZG_TAMPERED, KZG_MALFORMED = 8, 2  # degree-proof and single-opening rows
 KZG_COSET_ROWS, KZG_COSET_TAMPERED = 32, 2
@@ -1648,17 +1664,50 @@ def fr_ints(n: int, rng) -> list:
     return [int.from_bytes(rng.bytes(32), "big") % fr_plain.P_INT for _ in range(n)]
 
 
+def fr_pass_kinds(n: int) -> list:
+    """The FR_SASS kind of each of a forward transform's passes."""
+    passes = fr_cuda.fft_passes(n)
+    if passes == 1:
+        return ["single"]
+    return ["first"] + ["middle"] * (passes - 2) + ["last"]
+
+
+def fft_work_cycles(n: int, lib: Path) -> dict:
+    """The SM cycles of a forward transform's work at n: the stage kernel's
+    butterflies (``FR_STAGE_KERNEL_BUTTERFLY_ISSUE``, n/2 a stage, all
+    issue-bound) and the pass kernel's own SASS (``sass_pipes`` of each
+    pass's kernel, its stage loop run that pass's stages, n/2 threads a
+    pass); the bound takes the less."""
+    k = n.bit_length() - 1
+    issue = FR_STAGE_KERNEL_BUTTERFLY_ISSUE
+    staged = n // 2 * (issue["first"] + (k - 2) * issue["middle"] + issue["last"]) / ISSUE_PER_SM_CLOCK
+    own = sum(n // 2 * sass_pipes(lib, FR_SASS[kind], trips=stages, loops=1)["sm_cycles"]
+              for kind, (_, stages) in zip(fr_pass_kinds(n), fr_cuda.fft_plan(n)))
+    return {"stage_kernel": staged, "own": own, "used": "own" if own < staged else "stage_kernel",
+            "cycles": min(own, staged)}
+
+
+def shifted(x: torch.Tensor, words: int) -> torch.Tensor:
+    """A copy of ``x`` as a view ``words`` int32 into its own storage."""
+    flat = torch.empty(words + x.numel(), dtype=x.dtype, device=x.device)
+    flat[words:] = x.reshape(-1)
+    return flat[words:].view(x.shape)
+
+
 def fr_kernel_checks(card: "Card", rng, sizes: list) -> dict:
     """K12 (each op) at the blob's size on random values with the edge
     values 0, 1 and r - 1 in every pairing as the last rows, a one-element
-    operand either side, against its plain version on the card and Python
-    integers on a sample; K11 forward and inverse at each of ``sizes`` and
+    operand either side, and an operand only 8-byte aligned (its tiles
+    copied in 8-byte pieces), against its plain version on the card and
+    Python integers on a sample; K11 forward and inverse at each of ``sizes`` and
+    ``FR_FFT_CHECK_SIZES`` (one pass, a short last pass, three passes) and
     the das extension at the first, against their plain versions on the
     card. Then each kernel timed by the profiler (the median of three
-    windows) at each size, beside its bound (its SASS per pipe or its
-    bytes) and its plain version's time: a launch each. A K11 launch is
-    one stage, and its bound and plain time are the transform's over its
-    log2 n stages; the transform's own are kept as ``transform_*``."""
+    windows) at each of ``sizes``, beside its bound (K12: its SASS per pipe
+    or its bytes; K11: ``fft_work_cycles`` or its bytes) and its plain
+    version's time: a launch each. A K11 launch is one pass, and its bound
+    and plain time are the transform's over its passes; the transform's
+    own are kept as ``transform_*``."""
     p = fr_plain.P_INT
     n = sizes[0]
     edges = [(x, y) for x in (0, 1, p - 1) for y in (0, 1, p - 1)]
@@ -1680,43 +1729,49 @@ def fr_kernel_checks(card: "Card", rng, sizes: list) -> dict:
         for x, y in ((a[:1], b), (a, b[:1])):
             e = max_abs_err(fr_cuda.fr_mul(x, y, op), plain(x, y))
             require(e == 0, f"fr_mul op {op} with a one-element operand disagrees (max abs err {e})")
+        e = max_abs_err(fr_cuda.fr_mul(a, shifted(b, 2), op), plain(a, b))
+        require(e == 0, f"fr_mul op {op} with an operand only 8-byte aligned disagrees (max abs err {e})")
         errs["fr_mul"] = max(errs["fr_mul"], err)
-    for m in sizes:
+    for m in list(sizes) + list(FR_FFT_CHECK_SIZES):
         x = fr_plain.to_mont(torch.from_numpy(fr_plain.to_limbs(fr_ints(m, rng))).cuda())
         for inverse in (False, True):
             err = max_abs_err(fr_cuda.fr_fft(x, m, inverse), fr_plain.fft(x, m, inverse))
             require(err == 0, f"fr_fft {'inverse' if inverse else 'forward'} disagrees with its plain version at {m} "
-                              f"(max abs err {err})")
+                              f"({fr_cuda.fft_plan(m)} passes; max abs err {err})")
             errs["fr_fft"] = max(errs["fr_fft"], err)
     x = fr_plain.to_mont(torch.from_numpy(fr_plain.to_limbs(fr_ints(n, rng))).cuda())
     err = max_abs_err(fft_torch.das_extension(x, n), fr_plain.das_extension(x, n))
     require(err == 0, f"the das extension on K11 disagrees with its plain version at {n} (max abs err {err})")
     print(f"[kzg] K12 fr_mul (ops mul, add, sub) bit-exact against its plain version at {n} elements with the edge "
-          f"pairs of 0, 1, r - 1 and a one-element operand, Python integers on a sample; K11 fr_fft forward and "
-          f"inverse at {sizes} and the das extension at {n}: {errs}", flush=True)
+          f"pairs of 0, 1, r - 1, a one-element operand and an operand only 8-byte aligned, Python integers on a sample; K11 fr_fft forward and "
+          f"inverse at {list(sizes) + list(FR_FFT_CHECK_SIZES)} (passes: "
+          f"{ {m: fr_cuda.fft_plan(m) for m in list(sizes) + list(FR_FFT_CHECK_SIZES)} }) and the das extension at "
+          f"{n}: {errs}", flush=True)
 
     lib = fr_cuda.build()
-    sass = {k: sass_pipes(lib, symbol) for k, symbol in FR_SASS.items()}
-    print(f"[kzg] SASS a thread: " + "; ".join(f"{k} {v['alu']} ALU, {v['fma']} FMA, {v['issue']} issued "
-                                             f"({v['bound_by_pipe']})" for k, v in sass.items()), flush=True)
+    sass = {"fr_mul": sass_pipes(lib, FR_SASS["fr_mul"])}
+    sass.update({k: sass_pipes(lib, FR_SASS[k], trips=1, loops=1) for k in ("first", "middle", "last", "single")})
+    print(f"[kzg] SASS a thread (K11 with one stage a pass): "
+          + "; ".join(f"{k} {v['alu']} ALU, {v['fma']} FMA, {v['issue']} issued ({v['bound_by_pipe']})"
+                      for k, v in sass.items()), flush=True)
     out = {}
     for m in sizes:
         ints = fr_ints(2 * m, rng)
         a, b = (torch.from_numpy(fr_plain.to_limbs(v)).cuda() for v in (ints[:m], ints[m:]))
         x = fr_plain.to_mont(a)
-        stages = m.bit_length() - 1
+        passes = fr_cuda.fft_passes(m)
         mul_bound = card.sass_bound_ms(m, sass["fr_mul"], 3 * FR_ROW_BYTES * m)
-        fft_cycles = m // 2 * (sass["first"]["sm_cycles"] + (stages - 2) * sass["middle"]["sm_cycles"]
-                               + sass["last"]["sm_cycles"])
-        fft_bound = card.cycles_bound_ms(fft_cycles, 2 * FR_ROW_BYTES * m + FR_TWIDDLE_BYTES * m // 2)
-        stage_ms = device_ms(lambda: fr_cuda.fr_fft(x, m), "fr_fft_stage_kernel", per_call=stages)
+        work = fft_work_cycles(m, lib)
+        fft_bound = card.cycles_bound_ms(work["cycles"], 2 * FR_ROW_BYTES * m + FR_TWIDDLE_BYTES * m // 2)
+        pass_ms = device_ms(lambda: fr_cuda.fr_fft(x, m), "fr_fft_pass_kernel", per_call=passes)
         fft_plain_ms = once_ms(lambda: fr_plain.fft(x, m))
         recs = {
             "fr_mul": {"ms": device_ms(lambda: fr_cuda.fr_mul(a, b), "fr_mul_kernel"),
                        "plain_ms": cuda_ms(lambda: fr_plain.mul(a, b), reps=3), "bound": mul_bound},
-            "fr_fft": {"ms": stage_ms, "plain_ms": fft_plain_ms / stages,
-                       "bound": (fft_bound[0] / stages, fft_bound[1]), "launches_a_call": stages,
-                       "transform_ms": stage_ms * stages, "transform_plain_ms": fft_plain_ms,
+            "fr_fft": {"ms": pass_ms, "plain_ms": fft_plain_ms / passes,
+                       "bound": (fft_bound[0] / passes, fft_bound[1]), "launches_a_call": passes,
+                       "passes": fr_cuda.fft_plan(m), "work_cycles": work,
+                       "transform_ms": pass_ms * passes, "transform_plain_ms": fft_plain_ms,
                        "transform_bound_ms": fft_bound[0]},
         }
         for name, r in recs.items():
@@ -1725,9 +1780,10 @@ def fr_kernel_checks(card: "Card", rng, sizes: list) -> dict:
                 **r, "bound_ms": bound, "bound_by": bound_by}
             print(f"[kzg] {name} at {m} elements: {r['ms'] * 1e3:.3f} us a launch on the card; bound "
                   f"{bound * 1e3:.3f} us ({bound_by}); plain {r['plain_ms']:.3f} ms"
-                  + (f"; a transform of {stages} launches {r['transform_ms'] * 1e3:.2f} us, bound "
-                     f"{r['transform_bound_ms'] * 1e3:.3f} us, plain {fft_plain_ms:.3f} ms" if name == "fr_fft" else ""),
-                  flush=True)
+                  + (f"; a transform of {passes} launches {r['transform_ms'] * 1e3:.2f} us, bound "
+                     f"{r['transform_bound_ms'] * 1e3:.3f} us (work: the stage kernel's butterflies {work['stage_kernel']:.0f} SM "
+                     f"cycles, this kernel's SASS {work['own']:.0f}), plain {fft_plain_ms:.3f} ms"
+                     if name == "fr_fft" else ""), flush=True)
     for name, r in out.items():  # the record at the main path's size, the blob's
         keys = ("ms", "plain_ms", "bound_ms", "bound_by") + (("transform_ms",) if name == "fr_fft" else ())
         r.update({k: r["by_size"][n][k] for k in keys}, elements=n, sass=sass)
@@ -1796,8 +1852,9 @@ def kzg_phase(report: dict, card: "Card", seed: int) -> dict:
     require(inverse == fr.fft(values, inv=True), f"fft_device (inverse) disagrees with crypto/fr.fft at {blob}")
     require(extension == fr.das_fft_extension(values), f"das_fft_extension_device disagrees with the host at {blob}")
     host_s = time.perf_counter() - t0
-    stages = blob.bit_length() - 1  # K11 launches a stage: log2 n a transform
-    require(fr_launches == {"fr_fft": {blob: 3 * stages, 2 * blob: stages + 1}, "fr_mul": {blob: 6}},
+    passes = fr_cuda.fft_passes  # K11 launches a pass: ceil(log2 n / 8) a transform
+    require(passes(blob) <= 3 and passes(2 * blob) <= 3, f"K11 plans {passes(blob)} and {passes(2 * blob)} passes")
+    require(fr_launches == {"fr_fft": {blob: 3 * passes(blob), 2 * blob: passes(2 * blob)}, "fr_mul": {blob: 6}},
             f"the FFT entry points launched {fr_launches}")
     out["fft"] = {"n": blob, "card_s": fft_s, "host_oracle_s": host_s, "launches": fr_launches}
     print(f"[kzg] fft_device forward and inverse and das_fft_extension_device at {blob} points on the card in "

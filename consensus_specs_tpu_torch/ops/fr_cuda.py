@@ -1,7 +1,8 @@
 """Bind and launch the hand-written Fr kernels of ``csrc/fr_fft.cu``: K12
 ``fr_mul`` (the pointwise Montgomery product a b 2^-264 mod r, and the
-butterfly's sums as op codes 1 and 2) and K11 ``fr_fft`` (the radix-2 DIT,
-one launch a stage).
+butterfly's sums as op codes 1 and 2, a block a tile of 128 elements) and
+K11 ``fr_fft`` (the radix-2 DIT, one launch a pass of up to
+``FFT_PASS_STAGES`` stages run in shared memory).
 
 The source (with its device header ``csrc/fr.cuh``) is built at first
 launch by ``cuda_build``; nothing is built when the module is imported.
@@ -10,7 +11,11 @@ The wrappers take CUDA int32 tensors of canonical limbs ``(..., 22)`` in
 Montgomery form (radix 2^264, ``fr_plain``'s layout), launch on PyTorch's
 current stream, raise if a launch is refused, and count in ``launches``
 and ``sizes`` (elements a launch -> launches), one a kernel launch:
-K11 adds log2 n a transform, the stage launches its C launcher makes.
+K11 adds ``fft_passes(n)`` a transform, the pass launches its C launcher
+makes. The kernels take 8-byte aligned limb rows: an operand that is not
+(a view at an odd offset) is copied first. K12 copies its tiles in
+16-byte pieces where all its tensors are 16-byte aligned, else in 8-byte
+pieces (its launcher chooses).
 There is no fallback: a build or launch failure raises.
 """
 from __future__ import annotations
@@ -42,6 +47,7 @@ _SCALE = ctypes.c_uint32 * N_WORDS
 MUL_ARGTYPES = [_P, _I64, _P, _I64, _P, _I64, ctypes.c_int, _P]
 FFT_ARGTYPES = [_P, _P, _P, _P, _I64, ctypes.c_int, ctypes.POINTER(ctypes.c_uint32), ctypes.c_int, _P]
 WORD_R = 1 << (32 * N_WORDS)  # the kernels' internal Montgomery radix 2^256
+FFT_PASS_STAGES = 8  # fr.cuh kPassStages: the most stages a K11 launch runs
 
 _twiddles: dict = {}  # (n, inverse, device) -> (n/2, 8) int32 words on the device
 _scales: dict = {}  # n -> n^-1 2^256 mod r as 8 words
@@ -80,6 +86,25 @@ def twiddle_words(n: int, inverse: bool) -> np.ndarray:
     return words_of([w * WORD_R % p for w in fr_plain.twiddle_ints(n, inverse)])
 
 
+def fft_plan(n: int) -> list:
+    """K11's passes for a transform of n = 2^k rows, as fr.cuh pass_plan
+    launches them: (first stage, stages) each, ceil(k / FFT_PASS_STAGES)
+    passes of as equal a size as can be, the last the shortest."""
+    k = n.bit_length() - 1
+    passes = -(-k // FFT_PASS_STAGES)
+    per = -(-k // passes)
+    return [(s0, min(per, k - s0)) for s0 in range(0, k, per)]
+
+
+def fft_passes(n: int) -> int:
+    """K11's launches for a transform of n rows: one a pass."""
+    return len(fft_plan(n))
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    return x if x.data_ptr() % 8 == 0 else x.clone()
+
+
 def _check(name: str, x: torch.Tensor) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got one on {x.device}")
@@ -92,8 +117,8 @@ def _operand(name: str, x: torch.Tensor, shape: tuple) -> tuple:
     the whole batch is read with stride 0."""
     _check(name, x)
     if x.numel() == N_LIMBS:
-        return x.reshape(N_LIMBS).contiguous(), 0
-    return x.expand(shape).contiguous(), N_LIMBS
+        return _aligned(x.reshape(N_LIMBS).contiguous()), 0
+    return _aligned(x.expand(shape).contiguous()), N_LIMBS
 
 
 def fr_mul(a: torch.Tensor, b: torch.Tensor, op: int = OP_MUL) -> torch.Tensor:
@@ -120,23 +145,32 @@ def fr_mul(a: torch.Tensor, b: torch.Tensor, op: int = OP_MUL) -> torch.Tensor:
     return out
 
 
+def fft_constants(n: int, inverse: bool, device) -> tuple:
+    """K11's constants for a transform of n on ``device``, cached: the
+    twiddle words ((n/2, 8) int32) and n^-1 2^256 mod r (8 words, a ctypes
+    array)."""
+    key = (n, bool(inverse), str(device))
+    tw = _twiddles.get(key)
+    if tw is None:
+        tw = _twiddles[key] = torch.from_numpy(twiddle_words(n, bool(inverse))).to(device)
+    scale = _scales.get(n)
+    if scale is None:
+        p = fr_plain.P_INT
+        scale = _scales[n] = _SCALE(*(int(w) & 0xFFFFFFFF for w in words_of([pow(n, p - 2, p) * WORD_R % p])[0]))
+    return tw, scale
+
+
 def fr_fft(vals: torch.Tensor, n: int, inverse: bool = False) -> torch.Tensor:
     """K11: the radix-2 DIT of ``vals`` (n, 22) in Montgomery form, n a
-    power of two >= 2; on the inverse, scaled by n^-1. log2 n launches."""
+    power of two >= 2; on the inverse, scaled by n^-1. ``fft_passes(n)``
+    launches."""
     _check("fr_fft", vals)
     if n < 2 or n & (n - 1) or tuple(vals.shape) != (n, N_LIMBS):
         raise ValueError(f"fr_fft: expected (n, {N_LIMBS}) for a power of two n >= 2, got n={n} "
                          f"and {tuple(vals.shape)}")
     dev = vals.device
-    key = (n, bool(inverse), str(dev))
-    tw = _twiddles.get(key)
-    if tw is None:
-        tw = _twiddles[key] = torch.from_numpy(twiddle_words(n, bool(inverse))).to(dev)
-    scale = _scales.get(n)
-    if scale is None:
-        p = fr_plain.P_INT
-        scale = _scales[n] = _SCALE(*(int(w) & 0xFFFFFFFF for w in words_of([pow(n, p - 2, p) * WORD_R % p])[0]))
-    x = vals.contiguous()
+    tw, scale = fft_constants(n, inverse, dev)
+    x = _aligned(vals.contiguous())
     words = torch.empty((n, N_WORDS), dtype=torch.int32, device=dev)
     out = torch.empty((n, N_LIMBS), dtype=torch.int32, device=dev)
     lib = _load()
@@ -145,7 +179,7 @@ def fr_fft(vals: torch.Tensor, n: int, inverse: bool = False) -> torch.Tensor:
                                n.bit_length() - 1, scale, int(bool(inverse)), torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fr_fft launch failed: {lib.error_string(rc).decode()}")
-    stages = n.bit_length() - 1
-    launches["fr_fft"] += stages
-    sizes["fr_fft"][n] = sizes["fr_fft"].get(n, 0) + stages
+    passes = fft_passes(n)
+    launches["fr_fft"] += passes
+    sizes["fr_fft"][n] = sizes["fr_fft"].get(n, 0) + passes
     return out

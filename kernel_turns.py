@@ -20,19 +20,22 @@ from ``build/smoke_flush.json``, which ``chip_smoke.py`` writes (run it
 first, in the same call).
 
 With DIR, another checkout of the repo, say the parent commit unpacked by
-``git archive``: its ``fq_pow.cu`` and ``curve.cu`` (and the headers they
-include) are compiled by nvcc into ``build/turns/`` with this checkout's
-flags, each kernel symbol renamed ``<name>_parent_kernel`` so that the
-profiler tells the two apart, and called through this checkout's C launch
-signatures (``fq_cuda.POW_ARGTYPES``/``CURVE_ARGTYPES``): the script
-refuses a DIR whose ``extern "C"`` declarations differ from this
-checkout's. At 1 element, at a BLS flush's 130 and 260 and at a
-decode's 16,385, each pair first agrees bit for bit on the same inputs,
-then both are timed in turns (``chip_smoke.device_ms_turns``): K5 with
-(p - 1) / 2 and (p + 1) / 4, K6 with (p - 1) / 2, K7/K8 by |x|;
-``--kernels`` keeps the named ones, ``--sizes`` takes other element
-counts. A variant of a kernel is timed the same way, from a copy of this
-checkout with the variant's edit as DIR.
+``git archive``: its ``fq_pow.cu``, ``curve.cu`` and ``fr_fft.cu`` (and the
+headers they include) are compiled by nvcc into ``build/turns/`` with this
+checkout's flags, each kernel symbol renamed ``<name>_parent_kernel`` so
+that the profiler tells the two apart, and called through this checkout's
+C launch signatures (``fq_cuda.POW_ARGTYPES``/``CURVE_ARGTYPES``,
+``fr_cuda.MUL_ARGTYPES``/``FFT_ARGTYPES``): the script refuses a DIR whose
+``extern "C"`` declarations differ from this checkout's. At 1 element, at
+a BLS flush's 130 and 260 and at a decode's 16,385 (``--sizes``), and for
+K11/K12 at 1,024 and at the FFT entry points' 16,384 and 32,768, each
+pair first agrees bit for bit on the same inputs, then both are timed in
+turns (``chip_smoke.device_ms_turns``): K5 with (p - 1) / 2 and (p + 1) /
+4, K6 with (p - 1) / 2, K7/K8 by |x|, K12 as the product, K11 as a
+forward transform (device time of all its launches, each side's launches
+a transform counted by the profiler); ``--kernels`` keeps the named
+ones. A variant of a kernel is timed the same way, from a
+copy of this checkout with the variant's edit as DIR.
 
 Prints a line a kernel and size, the card's name and power limit, and last
 one JSON object of the results. Needs one CUDA card; exits non-zero
@@ -62,7 +65,7 @@ from chip_smoke import (  # noqa: E402
     chain_work, cuda_ms, device_ms_turns, field_pairs, fq_plain_op, fq_variants, ladder_work, pow_operand,
     resident_int_ops, sass_pipes, traced,
 )
-from consensus_specs_tpu_torch.ops import cuda_build, fq, fq_cuda, fq_plain, tower  # noqa: E402
+from consensus_specs_tpu_torch.ops import cuda_build, fq, fq_cuda, fq_plain, fr_cuda, fr_plain, tower  # noqa: E402
 from consensus_specs_tpu_torch.ops import curve_torch as cj  # noqa: E402
 from consensus_specs_tpu_torch.ops import ladder_checks as lc  # noqa: E402
 
@@ -73,7 +76,12 @@ SOURCES = {
     "curve.cu": (("fq.cuh", "curve.cuh"), ("g1_mul_static", "g2_mul_static"), "curve_error_string",
                  fq_cuda.CURVE_ARGTYPES),
 }
+# K11/K12's source -> (headers, kernel symbols <name>_kernel); its launchers
+# take other arguments than K5-K8's (fr_cuda.MUL_ARGTYPES/FFT_ARGTYPES)
+FR_SOURCES = {"fr_fft.cu": (("fr.cuh",), ("fr_mul", "fr_fft_pass"))}
 SIZES = "1,130,260,16385"
+FR_SIZES = (1024, 16384, 32768)
+FR_KERNELS = ("fr_fft", "fr_mul")
 
 
 def c_api(path: Path) -> dict:
@@ -85,8 +93,7 @@ def c_api(path: Path) -> dict:
     return {name: " ".join(f"{ret} ({params})".split()) for ret, name, params in found}
 
 
-def build_parent(parent: Path, source: str) -> ctypes.CDLL:
-    headers, names, _, _ = SOURCES[source]
+def build_parent(parent: Path, source: str, headers: tuple, names: tuple) -> ctypes.CDLL:
     csrc = parent / CSRC
     ours, theirs = c_api(ROOT / CSRC / source), c_api(csrc / source)
     smoke.require(ours == theirs, f"{csrc / source} declares another C API than this checkout's: {theirs} != {ours}")
@@ -109,10 +116,10 @@ def parent_kernels(parent: Path, keep: list) -> dict:
     this checkout's wrapper is: a tensor and the exponent's bits, or a
     Jacobian point and k."""
     calls = {}
-    for source, (_, names, error_fn, argtypes) in SOURCES.items():
+    for source, (headers, names, error_fn, argtypes) in SOURCES.items():
         if not set(names) & set(keep):
             continue
-        lib = build_parent(parent, source)
+        lib = build_parent(parent, source, headers, names)
         for name in names:
             launch = getattr(lib, f"{name}_launch")
             launch.argtypes, launch.restype = argtypes, ctypes.c_int
@@ -137,6 +144,84 @@ def _call(lib, launch, name: str, error_fn: str):
     if name in smoke.POW:
         return lambda a, bits: run([a], bits)[0]
     return lambda pt, k: tuple(run(list(pt), fq_plain.bits_msb(k)))
+
+
+def parent_fr(parent: Path) -> dict:
+    """DIR's build of K11/K12, called as this checkout's wrappers call
+    theirs: ``fr_mul(a, b)`` the product of (n, 22) rows, ``fr_fft(x, n)``
+    the forward transform."""
+    lib = build_parent(parent, "fr_fft.cu", *FR_SOURCES["fr_fft.cu"])
+    lib.fr_mul_launch.argtypes, lib.fr_mul_launch.restype = fr_cuda.MUL_ARGTYPES, ctypes.c_int
+    lib.fr_fft_launch.argtypes, lib.fr_fft_launch.restype = fr_cuda.FFT_ARGTYPES, ctypes.c_int
+    lib.fr_error_string.argtypes, lib.fr_error_string.restype = [ctypes.c_int], ctypes.c_char_p
+
+    def check(rc: int, name: str) -> None:
+        if rc != 0:
+            raise RuntimeError(f"the parent's {name} launch failed: {lib.fr_error_string(rc).decode()}")
+
+    def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        out = torch.empty_like(a)
+        check(lib.fr_mul_launch(a.data_ptr(), fr_plain.N_LIMBS, b.data_ptr(), fr_plain.N_LIMBS, out.data_ptr(),
+                                a.shape[0], fr_cuda.OP_MUL, torch.cuda.current_stream().cuda_stream), "fr_mul")
+        return out
+
+    def fft(x: torch.Tensor, n: int) -> torch.Tensor:
+        tw, scale = fr_cuda.fft_constants(n, False, x.device)
+        words = torch.empty((n, fr_cuda.N_WORDS), dtype=torch.int32, device=x.device)
+        out = torch.empty_like(x)
+        check(lib.fr_fft_launch(x.data_ptr(), words.data_ptr(), out.data_ptr(), tw.data_ptr(), n, n.bit_length() - 1,
+                                scale, 0, torch.cuda.current_stream().cuda_stream), "fr_fft")
+        return out
+
+    return {"fr_mul": mul, "fr_fft": fft}
+
+
+def launches_a_call(fn, symbol: str, reps: int = 4, windows: int = 2) -> int:
+    """The launches of kernels whose name holds ``symbol`` that one call of
+    ``fn`` makes, as the profiler counts them over ``reps`` calls: the most
+    of ``windows`` windows, since CUPTI may drop events but adds none."""
+    def run():
+        for _ in range(reps):
+            fn()
+
+    seen = max(sum(e.count for e in traced(run) if symbol in e.key) for _ in range(windows))
+    smoke.require(seen > 0, f"the profiler saw no launch of {symbol}")
+    return round(seen / reps)
+
+
+def fr_turns(parent: Path, keep: list, seed: int) -> dict:
+    """K11/K12 against DIR's build at each of ``FR_SIZES``: bit-exact on the
+    same inputs first, then device time in turns (K11: the transform, all
+    its launches' device time)."""
+    old = parent_fr(parent)
+    rng = np.random.default_rng([seed, 15])
+    out = {}
+    for n in FR_SIZES:
+        a, b = (torch.from_numpy(fr_plain.to_limbs(smoke.fr_ints(n, rng))).cuda() for _ in range(2))
+        x = fr_plain.to_mont(a)
+        calls = {"fr_mul": (lambda: fr_cuda.fr_mul(a, b), lambda: old["fr_mul"](a, b)),
+                 "fr_fft": (lambda: fr_cuda.fr_fft(x, n), lambda: old["fr_fft"](x, n))}
+        for name in (k for k in FR_KERNELS if k in keep):
+            new, prev = calls[name]
+            got, want = new(), prev()
+            torch.cuda.synchronize()
+            err = smoke.max_abs_err(got, want)
+            smoke.require(err == 0, f"{name} disagrees with the parent's at {n} (max abs err {err})")
+            symbol = "fr_fft_pass" if name == "fr_fft" else name
+            mine, theirs = f"{symbol}_kernel", f"{symbol}_parent_kernel"
+            sides = {mine: new, theirs: prev}
+            per_call = {k: launches_a_call(fn, k) for k, fn in sides.items()}
+            want_launches = fr_cuda.fft_passes(n) if name == "fr_fft" else 1
+            smoke.require(per_call[mine] == want_launches,
+                          f"{name} at {n}: the profiler counted {per_call[mine]} launches a call, not {want_launches}")
+            ms = smoke.device_ms_turns(sides, reps=6, per_call=per_call)
+            rec = out.setdefault(name, {})[str(n)] = {
+                "ms": ms[mine] * per_call[mine], "parent_ms": ms[theirs] * per_call[theirs],
+                "launches": per_call[mine], "parent_launches": per_call[theirs]}
+            print(f"[turns] {name} at {n} elements: {rec['ms'] * 1e3:.2f} us on the card in {rec['launches']} "
+                  f"launches, the other side's {rec['parent_ms'] * 1e3:.2f} us in {rec['parent_launches']} "
+                  f"({rec['ms'] / rec['parent_ms']:.3f}x), bit-exact", flush=True)
+    return out
 
 
 def loop_chain(name: str, a: torch.Tensor, bits: list) -> torch.Tensor:
@@ -392,7 +477,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("parent", type=Path, nargs="?", help="another checkout of the repo")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--kernels", default="fq_pow,fq2_pow,g1_mul_static,g2_mul_static")
+    ap.add_argument("--kernels", default="fq_pow,fq2_pow,g1_mul_static,g2_mul_static,fr_fft,fr_mul")
     ap.add_argument("--sizes", default=SIZES, help="element counts, comma-separated")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -429,6 +514,8 @@ def main() -> int:
         rec = out.setdefault(name, {})[n] = {"ms": ms[f"{name}_kernel"], "parent_ms": ms[f"{name}_parent_kernel"]}
         print(f"[turns] {name} at {n} elements: {rec['ms'] * 1e3:.1f} us on the card, the other side's "
               f"{rec['parent_ms'] * 1e3:.1f} us ({rec['ms'] / rec['parent_ms']:.3f}x), bit-exact", flush=True)
+    if set(FR_KERNELS) & set(keep):
+        out.update(fr_turns(args.parent.resolve(), keep, args.seed))
     print(smoke.nvidia_smi("name,power.limit"))
     print(json.dumps({"parent": str(args.parent), "turns": out}))
     return 0

@@ -382,7 +382,7 @@ def _fr_limbs(card, ints):
 
 
 @pytest.mark.parametrize("op", [fr_cuda.OP_MUL, fr_cuda.OP_ADD, fr_cuda.OP_SUB], ids=["mul", "add", "sub"])
-@pytest.mark.parametrize("n", [1, 31, 16384])
+@pytest.mark.parametrize("n", [1, 31, 200, 16384])  # 200: a full tile of 128 and a short one
 def test_fr_mul_kernel_matches_plain_version(card, n, op):
     rng = np.random.default_rng([n, op])
     edges = [(x, y) for x in (0, 1, FR - 1) for y in (0, 1, FR - 1)] if n >= 9 else []
@@ -397,16 +397,53 @@ def test_fr_mul_kernel_matches_plain_version(card, n, op):
     assert torch.equal(fr_cuda.fr_mul(a[:1], b, op).cpu(), plain(a[:1].cpu(), b.cpu()))
 
 
+@pytest.mark.parametrize("op", [fr_cuda.OP_MUL, fr_cuda.OP_ADD, fr_cuda.OP_SUB], ids=["mul", "add", "sub"])
+@pytest.mark.parametrize("offset", [0, 2], ids=["16-byte", "8-byte"])
+def test_fr_mul_kernel_on_tensors_of_either_alignment(card, offset, op):
+    """K12 copies its tiles in 16-byte pieces where every tensor is
+    16-byte aligned and in 8-byte pieces where one is only 8-byte aligned
+    (a view two limbs into its storage); 201 rows: a full tile and a short
+    one of an odd count of rows."""
+    rng = np.random.default_rng([201, op])
+
+    def operand():
+        vals = _fr_limbs(card, [int.from_bytes(rng.bytes(32), "big") % FR for _ in range(201)])
+        flat = torch.zeros(offset + vals.numel(), dtype=torch.int32, device=card)
+        flat[offset:] = vals.view(-1)
+        x = flat[offset:].view(201, fr_plain.N_LIMBS)
+        assert x.data_ptr() % 16 == 4 * offset and torch.equal(x, vals)
+        return x
+
+    a, b = operand(), operand()
+    plain = {fr_cuda.OP_MUL: fr_plain.mul, fr_cuda.OP_ADD: fr_plain.add, fr_cuda.OP_SUB: fr_plain.sub}[op]
+    assert torch.equal(fr_cuda.fr_mul(a, b, op).cpu(), plain(a.cpu(), b.cpu()))
+
+
 @pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])
-@pytest.mark.parametrize("n", [2, 4, 1024, 32768])
-def test_fr_fft_kernel_matches_plain_version(card, n, inverse):
+# one pass at 2, 4, 64 and 256; two from 512, the last short at 2,048 (6 + 5
+# stages) and 32,768 (8 + 7); three at 2^17 (6 + 6 + 5)
+@pytest.mark.parametrize("n, passes", [(2, 1), (4, 1), (64, 1), (1024, 2), (2048, 2), (32768, 2), (1 << 17, 3)])
+def test_fr_fft_kernel_matches_plain_version(card, n, passes, inverse):
     rng = np.random.default_rng(n)
     x = fr_plain.to_mont(_fr_limbs(card, [int.from_bytes(rng.bytes(32), "big") % FR for _ in range(n)]))
     before = fr_cuda.launches["fr_fft"]
     got = fr_cuda.fr_fft(x, n, inverse)
     torch.cuda.synchronize()
-    assert fr_cuda.launches["fr_fft"] == before + n.bit_length() - 1  # one launch a stage
+    assert fr_cuda.launches["fr_fft"] == before + passes == before + fr_cuda.fft_passes(n)  # one launch a pass
     assert torch.equal(got, fr_plain.fft(x, n, inverse))
+
+
+def test_fr_kernels_take_views_at_any_offset(card):
+    """A view that starts one limb into its storage (4-byte aligned only)
+    is copied by the wrappers before the kernels' 8-byte accesses."""
+    rng = np.random.default_rng(3)
+    vals = _fr_limbs(card, [int.from_bytes(rng.bytes(32), "big") % FR for _ in range(64)])
+    flat = torch.zeros(1 + vals.numel(), dtype=torch.int32, device=card)
+    flat[1:] = vals.view(-1)
+    x = flat[1:].view(64, fr_plain.N_LIMBS)
+    assert x.data_ptr() % 8 == 4 and torch.equal(x, vals)
+    assert torch.equal(fr_cuda.fr_mul(x, x), fr_plain.mul(x.cpu(), x.cpu()).to(card))
+    assert torch.equal(fr_cuda.fr_fft(x, 64), fr_plain.fft(x, 64))
 
 
 def test_fft_entry_points_on_the_card(card):

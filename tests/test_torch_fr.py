@@ -5,12 +5,13 @@ the host oracle ``crypto/fr.py`` and Python integers. Every comparison is
 bit-exact on the limbs: both packages return canonical residues. Inputs
 are seeded numpy limb arrays or ints handed to both.
 
-The kernels' own arithmetic (``csrc/fr.cuh``: the 12-bit to 32-bit
-packing, the CIOS product and its 8-bit step to 2^-264, the sums, and the
-butterfly with its bit-reversed gather, twiddle index and n^-1 scale) also
-compiles as plain C++; where a host C++ compiler is present it is built
-here and a whole transform is run through it, stage by stage as the card
-launches them, against the plain version."""
+The kernels' own code (``csrc/fr.cuh``: the 12-bit to 32-bit packing, the
+product and its 8-bit step to 2^-264, the sums, K12's tile and K11's pass
+body with its bit-reversed gather, tile geometry, twiddle index and n^-1
+scale) also compiles as plain C++; where a host C++ compiler is present it
+is built here and run with a block's threads one after another, a step at
+a time (``fr::HostBlock``): K12 tile by tile, a whole transform pass by
+pass as the card launches them, against the plain version."""
 import ctypes
 import re
 
@@ -115,6 +116,7 @@ def test_seam_dispatch():
 # -- the kernels' arithmetic, built as plain C++ ----------------------------------
 
 _HOST_SRC = r"""
+#include <vector>
 #include "fr.cuh"
 extern "C" void host_fr_pointwise(const int32_t* a, const int32_t* b, int32_t* out, long n, int op) {
   for (long i = 0; i < n; ++i) {
@@ -123,23 +125,55 @@ extern "C" void host_fr_pointwise(const int32_t* a, const int32_t* b, int32_t* o
     else fr::pointwise<fr::kSub>(out + fr::kLimbs * i, a + fr::kLimbs * i, b + fr::kLimbs * i);
   }
 }
-// the transform as fr_fft_launch runs it: log2 n stages, each of n/2
-// butterflies, the card's threads run one after another
-extern "C" void host_fr_fft(const int32_t* in, uint32_t* words, int32_t* out, const uint32_t* twiddles, long n,
-                            int log_n, const uint32_t* n_inv, int inverse) {
+// K12 as fr_mul_launch runs it: a block a tile, its steps on each thread in
+// turn; the tile's spans copied in 16-byte pieces (wide) or 8-byte ones
+template <bool kWide>
+void tiles(const int32_t* a, long sa, const int32_t* b, long sb, int32_t* out, long n, int op) {
+  std::vector<int32_t> ta(fr::kTileRows * fr::kLimbs), tb(fr::kTileRows * fr::kLimbs), one(2 * fr::kLimbs);
+  fr::HostBlock blk{fr::kTileRows};
+  for (long tile = 0; tile * fr::kTileRows < n; ++tile) {
+    auto run = [&](auto k) { k(blk, tile, n, a, sa, b, sb, out, ta.data(), tb.data(), one.data()); };
+    if (op == fr::kMul) run(fr::pointwise_tile<fr::kMul, kWide, fr::HostBlock>);
+    else if (op == fr::kAdd) run(fr::pointwise_tile<fr::kAdd, kWide, fr::HostBlock>);
+    else run(fr::pointwise_tile<fr::kSub, kWide, fr::HostBlock>);
+  }
+}
+extern "C" void host_fr_tiles(const int32_t* a, long sa, const int32_t* b, long sb, int32_t* out, long n, int op,
+                              int wide) {
+  if (wide) tiles<true>(a, sa, b, sb, out, n, op);
+  else tiles<false>(a, sa, b, sb, out, n, op);
+}
+// K11 as fr_fft_launch runs it, in passes of at most max_stages stages
+// (the card's kPassStages, or fewer to force more passes): each pass's
+// blocks one after another, each block's steps on each thread in turn
+extern "C" int host_fr_fft(const int32_t* in, uint32_t* words, int32_t* out, const uint32_t* twiddles, int log_n,
+                           const uint32_t* n_inv, int inverse, int max_stages) {
   fr::Scale scale;
   for (int j = 0; j < fr::kWords; ++j) scale.v[j] = n_inv[j];
-  for (int stage = 0; stage < log_n; ++stage) {
-    const bool first = stage == 0, last = stage == log_n - 1;
-    for (long j = 0; j < n / 2; ++j) {
-      if (first && last && inverse) fr::butterfly<true, true, true>(j, in, words, out, twiddles, log_n, stage, scale);
-      else if (first && last) fr::butterfly<true, true, false>(j, in, words, out, twiddles, log_n, stage, scale);
-      else if (first) fr::butterfly<true, false, false>(j, in, words, out, twiddles, log_n, stage, scale);
-      else if (last && inverse) fr::butterfly<false, true, true>(j, in, words, out, twiddles, log_n, stage, scale);
-      else if (last) fr::butterfly<false, true, false>(j, in, words, out, twiddles, log_n, stage, scale);
-      else fr::butterfly<false, false, false>(j, in, words, out, twiddles, log_n, stage, scale);
+  const int passes = fr::pass_count(log_n, max_stages);
+  for (int p = 0; p < passes; ++p) {
+    const fr::Pass ps = fr::pass_plan(log_n, max_stages, p);
+    const bool first = p == 0, last = p == passes - 1;
+    std::vector<uint32_t> smem(fr::pass_smem_words(ps, first || last));
+    fr::HostBlock blk{ps.threads()};
+    for (int64_t b = 0; b < ps.blocks(); ++b) {
+      auto run = [&](auto pass) { pass(blk, ps, b, in, words, out, twiddles, scale, smem.data()); };
+      if (first && last && inverse) run(fr::fft_pass<true, true, true, fr::HostBlock>);
+      else if (first && last) run(fr::fft_pass<true, true, false, fr::HostBlock>);
+      else if (first) run(fr::fft_pass<true, false, false, fr::HostBlock>);
+      else if (last && inverse) run(fr::fft_pass<false, true, true, fr::HostBlock>);
+      else if (last) run(fr::fft_pass<false, true, false, fr::HostBlock>);
+      else run(fr::fft_pass<false, false, false, fr::HostBlock>);
     }
   }
+  return passes;
+}
+extern "C" int host_fr_pass_stages() { return fr::kPassStages; }
+extern "C" int host_fr_tile_rows() { return fr::kTileRows; }
+// pass p's first stage, stages, tile rows (log2) and adjacent groups (log2)
+extern "C" void host_fr_pass_plan(int log_n, int max_stages, int p, int* plan) {
+  const fr::Pass ps = fr::pass_plan(log_n, max_stages, p);
+  plan[0] = ps.s0, plan[1] = ps.stages, plan[2] = ps.lg_rows, plan[3] = ps.lg_lo;
 }
 """
 
@@ -148,15 +182,17 @@ extern "C" void host_fr_fft(const int32_t* in, uint32_t* words, int32_t* out, co
 def host_fr_lib(tmp_path_factory):
     handle = build_host_lib(tmp_path_factory, "host_fr", _HOST_SRC)
     handle.host_fr_pointwise.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_long, ctypes.c_int]
-    handle.host_fr_fft.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_long, ctypes.c_int, ctypes.c_void_p,
-                                                           ctypes.c_int]
+    handle.host_fr_tiles.argtypes = [ctypes.c_void_p, ctypes.c_long, ctypes.c_void_p, ctypes.c_long, ctypes.c_void_p,
+                                     ctypes.c_long, ctypes.c_int, ctypes.c_int]
+    handle.host_fr_fft.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+    handle.host_fr_pass_plan.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
     return handle
 
 
 @pytest.mark.parametrize("op, name", [(0, "mul"), (1, "add"), (2, "sub")])
 def test_kernel_pointwise_arithmetic_matches_plain_version(host_fr_lib, op, name):
-    """K12's element (fr.cuh pointwise: pack, CIOS product and div_2_8, or
-    the sums, unpack) against its plain version and Python integers."""
+    """K12's element (fr.cuh pointwise: pack, product and div_2_8, or the
+    sums, unpack) against its plain version and Python integers."""
     a, b = np.ascontiguousarray(A), np.ascontiguousarray(B)
     out = np.zeros_like(a)
     host_fr_lib.host_fr_pointwise(a.ctypes.data, b.ctypes.data, out.ctypes.data, len(a), op)
@@ -164,22 +200,105 @@ def test_kernel_pointwise_arithmetic_matches_plain_version(host_fr_lib, op, name
     assert list(fr_plain.from_limbs(out)) == [INT_REF[name](x, y) for x, y in zip(A_INTS, B_INTS)]
 
 
-@pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])
-@pytest.mark.parametrize("n", [2, 4, 256])
-def test_kernel_transform_matches_plain_version(host_fr_lib, n, inverse):
-    """K11's stages (fr.cuh butterfly: the bit-reversed gather and packing
-    of the first stage, the twiddle index, the in-place stages, n^-1 and
-    the unpacking of the last) with the wrapper's own twiddle and scale
-    words, against the plain transform."""
+def _host_tiles(lib, op, name, one, wide):
+    n = lib.host_fr_tile_rows() + 73  # a full tile and a short last one of an odd count of rows
+    ai, bi = (A_INTS + B_INTS)[:n], (B_INTS + A_INTS)[:n]
+    if one == "a":
+        ai = ai[:1]
+    if one == "b":
+        bi = bi[:1]
+    a, b = np.ascontiguousarray(fr_plain.to_limbs(ai)), np.ascontiguousarray(fr_plain.to_limbs(bi))
+    out = np.full((n, fr_plain.N_LIMBS), -1, dtype=np.int32)
+    lib.host_fr_tiles(a.ctypes.data, 0 if one == "a" else fr_plain.N_LIMBS, b.ctypes.data,
+                      0 if one == "b" else fr_plain.N_LIMBS, out.ctypes.data, n, op, wide)
+    want = getattr(fr_plain, name)(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+    assert want.shape[0] == n
+    np.testing.assert_array_equal(out, want)
+    ai, bi = ai * (n if one == "a" else 1), bi * (n if one == "b" else 1)
+    assert list(fr_plain.from_limbs(out)) == [INT_REF[name](x, y) for x, y in zip(ai, bi)]
+
+
+@pytest.mark.parametrize("op, name", [(0, "mul"), (1, "add"), (2, "sub")])
+@pytest.mark.parametrize("one", ["none", "a", "b"], ids=["rows", "a-stride0", "b-stride0"])
+def test_kernel_tiles_match_plain_version(host_fr_lib, op, name, one):
+    """K12's tiles as the card runs them on 16-byte aligned tensors (fr.cuh
+    pointwise_tile: the spans staged in 16-byte pieces and the last 8 bytes
+    of an odd count of rows, each thread's row packed from shared memory,
+    the op, the staged store) over one full tile and a short last one,
+    with either operand one element read at stride 0, against the plain
+    version and Python integers."""
+    _host_tiles(host_fr_lib, op, name, one, wide=1)
+
+
+@pytest.mark.parametrize("op, name", [(0, "mul"), (1, "add"), (2, "sub")])
+@pytest.mark.parametrize("one", ["none", "a", "b"], ids=["rows", "a-stride0", "b-stride0"])
+def test_kernel_tiles_in_8_byte_pieces_match_plain_version(host_fr_lib, op, name, one):
+    """K12's tiles as the card runs them on tensors only 8-byte aligned:
+    the spans staged in 8-byte pieces; otherwise as above."""
+    _host_tiles(host_fr_lib, op, name, one, wide=0)
+
+
+def _host_transform(lib, n, inverse, max_stages):
     vals = fr_plain.to_mont(torch.from_numpy(fr_plain.to_limbs(_rand(n - 2) + [0, P - 1])))
     x = np.ascontiguousarray(vals.numpy())
     words = np.zeros((n, fr_cuda.N_WORDS), dtype=np.uint32)
     out = np.zeros_like(x)
     tw = np.ascontiguousarray(fr_cuda.twiddle_words(n, inverse))
     scale = fr_cuda.words_of([pow(n, P - 2, P) * fr_cuda.WORD_R % P])[0].copy()
-    host_fr_lib.host_fr_fft(x.ctypes.data, words.ctypes.data, out.ctypes.data, tw.ctypes.data, n,
-                            n.bit_length() - 1, scale.ctypes.data, int(inverse))
+    passes = lib.host_fr_fft(x.ctypes.data, words.ctypes.data, out.ctypes.data, tw.ctypes.data, n.bit_length() - 1,
+                             scale.ctypes.data, int(inverse), max_stages)
     np.testing.assert_array_equal(out, fr_plain.fft(vals, n, inverse).numpy())
+    return passes
+
+
+@pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])
+@pytest.mark.parametrize("n", [2, 4, 256])
+def test_kernel_transform_matches_plain_version(host_fr_lib, n, inverse):
+    """K11's pass body (fr.cuh fft_pass: the bit-reversed gather and packing
+    of the first pass, the tile geometry and twiddle index, the stages in
+    shared memory, n^-1 and the unpacking of the last) at the card's own
+    kPassStages, with the wrapper's own twiddle and scale words, against
+    the plain transform: one pass at each of these sizes."""
+    assert _host_transform(host_fr_lib, n, inverse, fr_cuda.FFT_PASS_STAGES) == fr_cuda.fft_passes(n) == 1
+
+
+@pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])
+@pytest.mark.parametrize("n, max_stages, plan", [
+    (256, 3, [(0, 3, 3, 0), (3, 3, 3, 0), (6, 2, 3, 1)]),  # a pass mid-transform, a short last pass
+    (128, 3, [(0, 3, 3, 0), (3, 3, 3, 0), (6, 1, 3, 2)]),  # a last pass of one stage, 4 groups a tile
+    (2048, 8, [(0, 6, 6, 0), (6, 5, 6, 1)]),  # the card's own: two passes, the last short
+], ids=["256-T3", "128-T3", "2048-T8"])
+def test_kernel_transform_in_passes_matches_plain_version(host_fr_lib, n, max_stages, plan, inverse):
+    """K11's pass body over several passes: passes that start mid-transform
+    (read and write the word rows), short last passes with several groups
+    of adjacent rows a tile, and the plan (first stage, stages, log2 tile
+    rows, log2 groups a tile) each pass is launched with."""
+    log_n = n.bit_length() - 1
+    got = []
+    for p in range(len(plan)):
+        cell = (ctypes.c_int * 4)()
+        host_fr_lib.host_fr_pass_plan(log_n, max_stages, p, cell)
+        got.append(tuple(cell))
+    assert got == plan
+    assert _host_transform(host_fr_lib, n, inverse, max_stages) == len(plan)
+
+
+def test_pass_count_matches_the_launcher(host_fr_lib):
+    """The wrapper's plan and count of K11 launches (``fr_cuda.fft_plan``,
+    ``fft_passes``: what ``launches`` adds) are fr_fft_launch's:
+    ceil(log2 n / kPassStages) passes of fr.cuh's kPassStages, at most 3 up
+    to 2^24 rows, 2 at the main path's 16,384 and 32,768."""
+    assert host_fr_lib.host_fr_pass_stages() == fr_cuda.FFT_PASS_STAGES
+    for log_n in range(1, 25):
+        cell = (ctypes.c_int * 4)()
+        count = -(-log_n // host_fr_lib.host_fr_pass_stages())
+        assert fr_cuda.fft_passes(1 << log_n) == count <= 3
+        for p, want in enumerate(fr_cuda.fft_plan(1 << log_n)):
+            host_fr_lib.host_fr_pass_plan(log_n, fr_cuda.FFT_PASS_STAGES, p, cell)
+            assert (cell[0], cell[1]) == want
+            assert cell[3] <= cell[0]  # a tile's groups differ only below its first stage
+        assert cell[0] + cell[1] == log_n  # the passes end at the last stage
+    assert fr_cuda.fft_passes(16384) == fr_cuda.fft_passes(32768) == 2
 
 
 def test_ctypes_signatures_match_the_c_launchers():
